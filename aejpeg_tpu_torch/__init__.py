@@ -1,10 +1,12 @@
 """aejpeg_tpu_torch — the adaptive edge-aware image codec in PyTorch + CUDA.
 
 The batched dense codec (encode_batch -> .ajpg -> decode_batch, and the
-streams over them) runs on one NVIDIA H100.  Plain tensor code is PyTorch;
-the three kernels of the Canny/CLAHE stack (256-bin histograms, the packed
-CLAHE LUT gather and its 4-tap fallback) are hand-written CUDA for sm_90a
-(`csrc/`), built with nvcc at first use (`ops/_build.py`).
+streams over them), the per-image Codec and the evaluation metrics
+(EvaluationMetrics: PSNR, SSIM, MS-SSIM, LPIPS) run on one NVIDIA H100.
+Plain tensor code is PyTorch; the kernels (256-bin histograms, the packed
+CLAHE LUT gather and its 4-tap fallback, the exact u8 -> x/255 load) are
+hand-written CUDA for sm_90a (`csrc/`), built with nvcc at first use
+(`ops/_build.py`).
 
 Device rule: every public entry point takes `device=None`, which means
 "cuda".  Without CUDA they raise unless the caller passes `device="cpu"`;
@@ -41,7 +43,10 @@ from .config import CodecConfig  # noqa: E402
 from .codec.batch_encode import encode_batch  # noqa: E402
 from .codec.batch_decode import decode_batch  # noqa: E402
 from .codec.stream import encode_stream, decode_stream  # noqa: E402
+from .codec.pipeline import Codec  # noqa: E402
 from .io.image import ImageData  # noqa: E402
+from .metrics import EvaluationMetrics  # noqa: E402
 
-__all__ = ["CodecConfig", "ImageData", "encode_batch", "decode_batch",
-           "encode_stream", "decode_stream", "resolve_device"]
+__all__ = ["Codec", "CodecConfig", "EvaluationMetrics", "ImageData",
+           "encode_batch", "decode_batch", "encode_stream", "decode_stream",
+           "resolve_device"]

@@ -8,7 +8,8 @@ dense design:
       levels (bit-packed) and normalized planes padded to the block grid.
   stage B (device, queued BEFORE the host plans): for every block size s
       in the config band, DCT + quantize + zigzag of the whole padded plane
-      as if uniformly tiled by s -> dense per-size zigzag-int16 tables, one
+      as if uniformly tiled by s (ops/dct.py: the same contraction as the
+      per-image Codec's) -> dense per-size zigzag-int16 tables, one
       row per grid cell; plus a small "slow" table of every possible
       boundary (partial) block, reflect-padded like the reference
       (src/jpeg/jpeg.py:398-402).
@@ -36,9 +37,8 @@ from ..config import CodecConfig
 from ..io.container import ContainerMetadata, ContainerWriter, LayerPayload
 from ..io.image import ImageData
 from ..native import entropy as native_entropy
-from ..ops import dct, quant, resize
+from ..ops import dct, kernels, quant, resize
 from ..ops.canny import canny
-from ..ops.rounding import divide
 from . import quadtree as qt
 from .dense import BatchSpec
 from .tables import device_tables, spec_for
@@ -70,7 +70,7 @@ def _stage_a(batch: torch.Tensor, space: str,
     BIT-PACKED (one uint8 row per image, MSB first); None (uniform grids)
     skips the Canny stack."""
     if batch.dtype == torch.uint8:
-        batch = divide(batch.to(torch.float32), 255.0)   # exact x/255
+        batch = kernels.u8_to_unit(batch)                # exact x/255
     mids, scales = color.normalization_constants(space)
     converted = color.convert("sRGB", space, batch)
     b = batch.shape[0]
@@ -134,12 +134,12 @@ def _stage_b(group_planes, spec: BatchSpec, tables, b: int) -> torch.Tensor:
         for s in g.sizes:
             t = tables[(gi, s)]
             gh, gw = ph // s, pw // s
-            y = dct.dct2_dense(planes, s).reshape(b, n_l, gh, s, gw, s)
-            hi = t["hi"].reshape(1, n_l, 1, s, 1, s)
-            lo = t["lo"].reshape(1, n_l, 1, s, 1, s)
+            y = dct.dct2(dct.plane_blocks(planes, s))  # (p, gh, gw, s, s)
+            y = y.reshape(b, n_l, gh * gw, s, s)
+            hi = t["hi"].reshape(1, n_l, 1, s, s)
+            lo = t["lo"].reshape(1, n_l, 1, s, s)
             lv = quant.quantize(y, hi, lo).to(torch.int16)
-            rows = lv.reshape(p, gh, s, gw, s).permute(0, 1, 3, 2, 4)
-            rows = rows.reshape(p, gh * gw, s * s)
+            rows = lv.reshape(p, gh * gw, s * s)
             flat.append(rows[:, :, t["zz"]].reshape(-1))
             if "pidx" in t:
                 blocks = planes[t["pidx"][:, None, None],

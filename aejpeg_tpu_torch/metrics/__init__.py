@@ -1,5 +1,6 @@
-"""Quality metrics (PSNR)."""
+"""Quality metrics: PSNR, SSIM, MS-SSIM, LPIPS."""
 
-from .quality import psnr
+from .quality import (EvaluationMetrics, ms_ssim, psnr, rgb_to_gray_u8,
+                      ssim)
 
-__all__ = ["psnr"]
+__all__ = ["psnr", "ssim", "ms_ssim", "rgb_to_gray_u8", "EvaluationMetrics"]

@@ -8,6 +8,14 @@ computed in float64 on the host and cast once.  The products are library
 matmuls at full fp32 (TF32 is off, see the package __init__), as the JAX
 package leaves them to XLA at precision="highest".  Their summation order
 is the backend's, so the port matches JAX to a tolerance, not bitwise.
+
+Every forward DCT, per-block (the Codec's gathered blocks, stage B's
+boundary table) and dense (stage B's planes), runs as the same two 2-D
+products `(M, s) @ (s, s)`, the block rows laid out contiguously, so that
+each coefficient is one dot product of the same length over the same
+operands whatever M is.  The batched form `D @ X` that a per-block call
+would otherwise reach takes a naive loop for 4x4 blocks on the CPU and
+BLAS for the dense planes, and the two differ in the last bit.
 """
 
 import functools
@@ -31,10 +39,25 @@ def _dct_tensor(size: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(dct_matrix(size), device=device)
 
 
+def _rows(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """x (..., s) contracted with d over the last axis (x @ d^T), as ONE
+    contiguous (M, s) @ (s, s) product."""
+    s = x.shape[-1]
+    return torch.mm(x.reshape(-1, s), d.T).reshape(x.shape)
+
+
 def dct2(blocks: torch.Tensor) -> torch.Tensor:
-    """Forward 2-D DCT-II over a batch: (..., s, s) -> (..., s, s)."""
+    """Forward 2-D DCT-II over a batch: (..., s, s) -> (..., s, s), D X D^T
+    (the block's rows contracted first, as in the JAX package)."""
     d = _dct_tensor(blocks.shape[-1], blocks.device)
-    return torch.matmul(torch.matmul(d, blocks), d.T)
+    return _rows(_rows(blocks.mT, d).mT, d)
+
+
+def plane_blocks(planes: torch.Tensor, size: int) -> torch.Tensor:
+    """(P, ph, pw) -> (P, gh, gw, s, s) view of the size-aligned blocks."""
+    p, ph, pw = planes.shape
+    return planes.reshape(p, ph // size, size, pw // size, size).permute(
+        0, 1, 3, 2, 4)
 
 
 def idct2(coeffs: torch.Tensor) -> torch.Tensor:
@@ -45,14 +68,9 @@ def idct2(coeffs: torch.Tensor) -> torch.Tensor:
 
 def dct2_dense(planes: torch.Tensor, size: int) -> torch.Tensor:
     """Forward 2-D DCT of every size-aligned block of (P, ph, pw) planes:
-    (P, ph, pw) -> (P, gh, s, gw, s), coefficients in block-raster
-    position."""
-    p, ph, pw = planes.shape
-    gh, gw = ph // size, pw // size
-    d = _dct_tensor(size, planes.device)
-    y = torch.matmul(d, planes.reshape(p * gh, size, pw))   # rows of blocks
-    y = y.reshape(p, gh, size, gw, size)
-    return torch.matmul(y, d.T)                             # columns
+    (P, ph, pw) -> (P, gh, s, gw, s) view, coefficients in block-raster
+    position; dct2 of the blocks, bit for bit."""
+    return dct2(plane_blocks(planes, size)).permute(0, 1, 3, 2, 4)
 
 
 def idct2_dense(blocks6: torch.Tensor) -> torch.Tensor:

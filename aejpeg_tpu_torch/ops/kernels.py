@@ -9,6 +9,8 @@ Counterpart of the JAX package's ops/pallas_kernels.py:
                          csrc/clahe_apply.cu
   clahe_lut_apply     <- clahe_lut_apply (_lut_apply_kernel)
                          csrc/clahe_apply.cu
+  u8_to_unit          <- u8_to_unit_lut (_u8_lut_2d, _u8_lut_kernel)
+                         csrc/u8_to_unit.cu
 
 Each wrapper checks dtype, shape, contiguity and device.  Given CPU tensors
 it runs the plain version; given CUDA tensors it launches the kernel on the
@@ -17,9 +19,11 @@ at first use (ops/_build.py).
 """
 
 import ctypes
+import functools
 import threading
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from . import _build
@@ -49,7 +53,8 @@ class LaunchCounter:
 
 LAUNCHES = {"histogram256": LaunchCounter(),
             "clahe_apply_gather": LaunchCounter(),
-            "clahe_lut_apply": LaunchCounter()}
+            "clahe_lut_apply": LaunchCounter(),
+            "u8_to_unit": LaunchCounter()}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +64,7 @@ _SIGNATURES = {
     "aej_clahe_gather": ("clahe_apply.cu",
                          [_VP] * 9 + [_I] * 5 + [_VP]),
     "aej_clahe_lut_apply": ("clahe_apply.cu", [_VP] * 6 + [_I] * 5 + [_VP]),
+    "aej_u8_to_unit": ("u8_to_unit.cu", [_VP, _VP, _VP, _LL, _VP]),
 }
 _FNS = {}
 _FNS_LOCK = threading.Lock()
@@ -259,4 +265,34 @@ def clahe_lut_apply(img: torch.Tensor, lut: torch.Tensor, iy: torch.Tensor,
             iy.data_ptr(), ix.data_ptr(), wts.data_ptr(), out.data_ptr(),
             p, h, w, n_tiles, gw)
     LAUNCHES["clahe_lut_apply"].add()
+    return out
+
+
+# ------------------------------------------------------- exact u8 -> x/255
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_table(device: torch.device) -> torch.Tensor:
+    """The 256 float32 values numpy's x.astype(np.float32) / 255 takes, as
+    the JAX package's _u8_unit_table builds them, on `device`."""
+    return torch.as_tensor(np.arange(256, dtype=np.float32) / 255,
+                           device=device)
+
+
+def u8_to_unit_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of u8_to_unit: a gather from the same table."""
+    return _unit_table(x.device)[x.long()]
+
+
+def u8_to_unit(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous uint8 tensor of any shape -> float32 x/255, bit-equal to
+    numpy's x.astype(np.float32) / 255 for all 256 values."""
+    _check("u8_to_unit", x, torch.uint8, x.shape, x.device)
+    if not _route("u8_to_unit", x.device):
+        return u8_to_unit_plain(x)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if x.numel():
+        _launch("aej_u8_to_unit", x.device, x.data_ptr(), out.data_ptr(),
+                _unit_table(x.device).data_ptr(), x.numel())
+        LAUNCHES["u8_to_unit"].add()
     return out

@@ -2,12 +2,14 @@
 
 Index tables are generated on the host once per block size (reference
 algorithm: src/jpeg/jpeg.py:726-766); stages B and D apply them on the
-device as gathers (codec/tables.py moves them there).
+device as gathers (codec/tables.py moves them there), and the per-image
+Codec through zigzag_gather / zigzag_scatter.
 """
 
 import functools
 
 import numpy as np
+import torch
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,3 +52,21 @@ def inverse_zigzag_indices(size: int) -> np.ndarray:
     inv[zz] = np.arange(size * size, dtype=np.int32)
     return inv
 
+
+@functools.lru_cache(maxsize=None)
+def _index_tensor(size: int, inverse: bool, device: torch.device
+                  ) -> torch.Tensor:
+    idx = inverse_zigzag_indices(size) if inverse else zigzag_indices(size)
+    return torch.as_tensor(idx.astype(np.int64), device=device)
+
+
+def zigzag_gather(blocks: torch.Tensor) -> torch.Tensor:
+    """(N, s, s) -> (N, s*s) in zigzag order."""
+    n, s, _ = blocks.shape
+    return blocks.reshape(n, s * s)[:, _index_tensor(s, False, blocks.device)]
+
+
+def zigzag_scatter(vectors: torch.Tensor, size: int) -> torch.Tensor:
+    """(N, s*s) zigzag vectors -> (N, s, s) raster blocks."""
+    idx = _index_tensor(size, True, vectors.device)
+    return vectors[:, idx].reshape(vectors.shape[0], size, size)

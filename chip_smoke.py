@@ -8,11 +8,13 @@ Phases, each fatal on failure:
      kernels (nvcc, sm_90a) and the native host library (g++), with their
      build times;
   2. kernels against their plain PyTorch versions on the card, at the
-     shapes the main path gives them, with times (CUDA events, median of
-     25), the plain version's time, one PyTorch library call's time where
-     one computes the same function, and the bound (least time the card
-     could take: the larger of the bytes moved over the memory rate and
-     the operations over the float32 rate);
+     shapes the main path gives them (u8_to_unit also at every u8 value,
+     odd sizes and offset pointers), with times (CUDA events around 25
+     back-to-back calls), the plain version's time, one PyTorch library
+     call's time where one computes the same function (bitwise equal
+     first, for u8_to_unit), and the bound (least time the card could
+     take: the larger of the bytes moved over the memory rate and the
+     operations over the float32 rate);
   3. the main path at full size: 42 synthetic 512x768 RGB images (plus 2
      of 200x300, a shape that takes the CLAHE fallback kernel) through
      encode_stream -> decode_stream on cuda with the bench config (YCoCg,
@@ -24,7 +26,18 @@ Phases, each fatal on failure:
   5. encode and decode Mpix/s of the 42-image batch (median of 5 warm
      batches) with each stage's time;
   6. a torch.profiler trace of one warm batch each way: device-busy share
-     and the ops with the most device time.
+     and the ops with the most device time;
+  7. each of the seven colour spaces through encode_batch -> decode_batch
+     on 8 x 512x768 on the card (PSNR > 25 dB, encode/decode Mpix/s, the
+     kernels it launched), then the card against the CPU on one image per
+     space under phase 4's tolerances;
+  8. the per-image Codec on the card, 4 x 512x768, YCoCg q20-80 blocks
+     4-128 and YCbCr 8x8: containers payload-identical to encode_batch's on
+     the card, decodes within 1e-5 of decode_batch's, mean per-image
+     compress / decompress ms, the kernels it launched;
+  9. EvaluationMetrics (psnr, ssim, ms_ssim, and LPIPS with random weights
+     at AlexNet's widths) on the card against the CPU, within 1e-5
+     (relative for LPIPS).
 
 Prints the kernels as one JSON line, the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Exits non-zero without that line when
@@ -46,6 +59,9 @@ QUALITY = (20, 80)
 BLOCKS = (4, 128)
 REPS = 25                 # kernel timing repetitions
 BATCH_REPS = 5            # warm batches timed in phase 5
+SPACE_BATCH = 8           # images per colour space in phase 7
+SPACE_REPS = 3            # warm batches timed per space in phase 7
+CODEC_IMAGES = 4          # images through the per-image Codec in phase 8
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12   # CUDA-core rate, also used for the integer ops
 
@@ -86,20 +102,21 @@ def synth_images(n, h, w, seed):
 
 
 def cuda_ms(fn, reps=REPS):
-    """Median wall time of fn() on the card, CUDA events, after 3 warm-ups."""
+    """Time of one fn() on the card: CUDA events around `reps` back-to-back
+    calls after 3 warm-ups, over `reps` (the host's launch work overlaps
+    the card's)."""
     import torch
     for _ in range(3):
         fn()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 # ------------------------------------------------------------------ phase 2
@@ -109,14 +126,15 @@ def kernel_cases(dev):
     """Inputs at the main path's shapes: per kernel, [(label, args, plain,
     kernel, library, bytes, ops, on_path)].  bytes: each input read once,
     each output written once; ops: one per histogram value, 9 flops per
-    gather pixel (three mul + three FMAs), 8 per fallback pixel (four FMAs).
-    on_path: the shape is one the phase-3 run gives the kernel (its times
-    are summed); the others are checked for correctness only."""
+    gather pixel (three mul + three FMAs), 8 per fallback pixel (four FMAs),
+    one table lookup per u8 value.  on_path: the shape is one the phase-3
+    run gives the kernel (its times are summed); the others are checked for
+    correctness only."""
     import torch
     from aejpeg_tpu_torch.ops import canny, kernels as K
     g = torch.Generator(device="cpu").manual_seed(0)
     cases = {"histogram256": [], "clahe_apply_gather": [],
-             "clahe_lut_apply": []}
+             "clahe_lut_apply": [], "u8_to_unit": []}
 
     def ints(*shape):
         return torch.randint(0, 256, shape, generator=g,
@@ -174,6 +192,33 @@ def kernel_cases(dev):
              lambda *a: K.clahe_lut_apply_plain(*a, gw=4),
              lambda *a: K.clahe_lut_apply(*a, gw=4), None, nbytes,
              8 * p * h * w, h in (sh, sh // 2)))
+
+    # the stage-A load of one batch; every u8 value; sizes that are not a
+    # multiple of 16; a flat run whose first byte is 4 past a 16-byte
+    # boundary (vector body after a 12-byte head) and one 1 past it (the
+    # output cannot align with it: scalar path only)
+    def bytes_(*shape):
+        return torch.randint(0, 256, shape, generator=g,
+                             dtype=torch.uint8).to(dev)
+    run = bytes_(1 << 20)
+    t255 = torch.tensor(255.0, dtype=torch.float32, device=dev)
+    for label, x, on_path in (
+            (f"({BATCH}, {H}, {W}, 3)", bytes_(BATCH, H, W, 3), True),
+            ("every value (256,)", torch.arange(256, device=dev).to(
+                torch.uint8), False),
+            ("(37, 53, 3)", bytes_(37, 53, 3), False),
+            ("(7, 13)", bytes_(7, 13), False),
+            ("offset 4, (1000003,)", run[4:4 + 1000003], False),
+            ("offset 1, (1000003,)", run[1:1 + 1000003], False)):
+        def lib(x=x):
+            return torch.div(x, t255)
+        if not torch.equal(lib().view(torch.int32),
+                           K.u8_to_unit_plain(x).view(torch.int32)):
+            raise AssertionError(f"u8_to_unit {label}: torch.div by a "
+                                 "0-dim tensor is not bitwise x/255")
+        cases["u8_to_unit"].append(
+            (label, (x,), K.u8_to_unit_plain, K.u8_to_unit, lib,
+             x.numel() * 5, x.numel(), on_path))
     return cases
 
 
@@ -234,22 +279,40 @@ def psnr_db(a, b):
     return float(psnr(torch.from_numpy(a), torch.from_numpy(b)))
 
 
+def _launches_since_reset(run):
+    """Run run() with every launch counter at 0; returns (its result, the
+    counts it left)."""
+    from aejpeg_tpu_torch.ops.kernels import LAUNCHES
+    for c in LAUNCHES.values():
+        c.reset()
+    out = run()
+    return out, {k: c.n for k, c in LAUNCHES.items()}
+
+
+def _require_launched(what, launches, names):
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched: {missing}")
+
+
 def main_path(cfg, big, small):
     """Phase 3: encode_stream -> decode_stream on the card; returns the
     launch counts of this run."""
     import aejpeg_tpu_torch as at
-    from aejpeg_tpu_torch.ops.kernels import LAUNCHES
     images = big + small
-    for c in LAUNCHES.values():
-        c.reset()
-    t0 = time.perf_counter()
-    blobs = at.encode_stream(images, cfg, batch_size=BATCH)
-    t1 = time.perf_counter()
-    decoded = at.decode_stream(blobs, batch_size=BATCH)
-    t2 = time.perf_counter()
-    launches = {k: c.n for k, c in LAUNCHES.items()}
-    log(f"  encode_stream {len(images)} images {t1 - t0:.3f} s, "
-        f"decode_stream {t2 - t1:.3f} s (first run: includes warm-up)")
+    marks = []
+
+    def run():
+        marks.append(time.perf_counter())
+        blobs = at.encode_stream(images, cfg, batch_size=BATCH)
+        marks.append(time.perf_counter())
+        decoded = at.decode_stream(blobs, batch_size=BATCH)
+        marks.append(time.perf_counter())
+        return blobs, decoded
+    (blobs, decoded), launches = _launches_since_reset(run)
+    log(f"  encode_stream {len(images)} images {marks[1] - marks[0]:.3f} s, "
+        f"decode_stream {marks[2] - marks[1]:.3f} s (first run: includes "
+        "warm-up)")
     log(f"  launches in this run: {launches}")
     worst = min(psnr_db(im.data, d.data) for im, d in zip(images, decoded))
     raw = sum(im.raw_rgb_bytes for im in images)
@@ -261,26 +324,23 @@ def main_path(cfg, big, small):
                                  "non-finite values")
     if worst <= 25.0:
         raise AssertionError(f"PSNR {worst:.3f} dB <= 25 dB")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    _require_launched("main path", launches, launches)
     return launches
 
 
-def card_vs_cpu(cfg, imgs):
-    """Phase 4: the same 2 images on cuda and on the CPU, held to the
+def card_vs_cpu(cfg, imgs, singles=True):
+    """Phase 4: the same images on cuda and on the CPU, held to the
     tolerances of tests/test_torch_codec.py: packed edge-level bits >=
     99.9% equal, coefficients >= 99.99% equal with |d| <= 1 where the
     state streams agree, decodes within 1e-5 and PSNR within 0.1 dB; then
-    batch-vs-single container identity on cuda."""
+    (singles) batch-vs-single container identity on cuda."""
     import torch
     import aejpeg_tpu_torch as at
     from aejpeg_tpu_torch.codec.batch_encode import _host_batch, _stage_a
     from aejpeg_tpu_torch.codec.tables import spec_for
     from aejpeg_tpu_torch.io.container import ContainerReader
     host = torch.from_numpy(_host_batch(imgs))
-    spec = spec_for(cfg, (H, W))
+    spec = spec_for(cfg, imgs[0].original_shape[:2])
     mn, mx = cfg.block_size_range
     band = (mn.bit_length(), mx.bit_length() - 1)   # node sizes 2mn..mx
     lv_gpu = _stage_a(host.cuda(), cfg.color_space, band, spec)[1].cpu()
@@ -321,6 +381,8 @@ def card_vs_cpu(cfg, imgs):
             f"PSNR gap {dpsnr:.3g} dB")
         if err > 1e-5 or dpsnr > 0.1:
             raise AssertionError("cuda/cpu decodes out of tolerance")
+    if not singles:
+        return
     singles = [at.encode_batch([im], cfg)[0] for im in imgs]
     if singles != gpu:
         raise AssertionError("batch-vs-single containers differ on cuda")
@@ -398,13 +460,148 @@ def profile(cfg, big):
         if name == "encode_batch" and eq:
             log(f"    hysteresis convergence checks (aten::equal): {eq[0]}")
 
+def color_spaces(big, card):
+    """Phase 7: every user-selectable space through encode_batch ->
+    decode_batch on the card, with its rates, then card vs CPU on one
+    image of it."""
+    import torch
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch import color
+    imgs = big[:SPACE_BATCH]
+    mpix = len(imgs) * H * W / 1e6
+    for space in color.get_color_spaces():
+        cfg = at.CodecConfig(space, QUALITY, BLOCKS, entropy_level=-1)
+        dec, launches = _launches_since_reset(
+            lambda: at.decode_batch(at.encode_batch(imgs, cfg)))
+        _require_launched(space, launches,
+                          ("u8_to_unit", "histogram256", "clahe_apply_gather"))
+        for im, d in zip(imgs, dec):
+            if d.data.shape != im.data.shape or not np.isfinite(d.data).all():
+                raise AssertionError(f"{space}: decoded image has the wrong "
+                                     "shape or non-finite values")
+        worst = min(psnr_db(im.data, d.data) for im, d in zip(imgs, dec))
+        if worst <= 25.0:
+            raise AssertionError(f"{space}: PSNR {worst:.3f} dB <= 25 dB")
+        enc, dect = [], []
+        for _ in range(SPACE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blobs = at.encode_batch(imgs, cfg)
+            t1 = time.perf_counter()
+            at.decode_batch(blobs)
+            enc.append(t1 - t0)
+            dect.append(time.perf_counter() - t1)
+        e, d = statistics.median(enc), statistics.median(dect)
+        ratio = sum(im.raw_rgb_bytes for im in imgs) / sum(map(len, blobs))
+        log(f"  {space}: worst PSNR {worst:.3f} dB, ratio {ratio:.3f}; "
+            f"encode {mpix / e:.3f} Mpix/s ({e * 1e3:.3f} ms), decode "
+            f"{mpix / d:.3f} Mpix/s ({d * 1e3:.3f} ms), median of "
+            f"{SPACE_REPS} warm {len(imgs)}-image batches ({card}); "
+            f"launches {launches}")
+        card_vs_cpu(cfg, imgs[:1], singles=False)
+
+
+def _same_payloads(a: bytes, b: bytes) -> bool:
+    from aejpeg_tpu_torch.io.container import ContainerReader
+    ra, rb = ContainerReader(a), ContainerReader(b)
+    if ra.metadata != rb.metadata:
+        return False
+    return all(la.bits_len == lb.bits_len and la.root_size == lb.root_size
+               and la.states_bytes == lb.states_bytes
+               and np.array_equal(la.coeffs, lb.coeffs)
+               for la, lb in zip(ra.read_layers(), rb.read_layers()))
+
+
+def codec_phase(big, card):
+    """Phase 8: the per-image Codec on the card against encode_batch /
+    decode_batch on the card."""
+    import torch
+    import aejpeg_tpu_torch as at
+    imgs = big[:CODEC_IMAGES]
+    for cfg, needs in (
+            (at.CodecConfig("YCoCg", QUALITY, BLOCKS, entropy_level=-1),
+             ("histogram256", "clahe_apply_gather")),
+            (at.CodecConfig("YCbCr", (50, 50), (8, 8), entropy_level=-1),
+             ())):
+        codec = at.Codec(cfg)
+        codec.decompress(codec.compress(imgs[0]))        # warm-up
+
+        def run():
+            blobs, dec, tc, td = [], [], [], []
+            for im in imgs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                blobs.append(codec.compress(im))
+                t1 = time.perf_counter()
+                dec.append(codec.decompress(blobs[-1]))
+                tc.append(t1 - t0)
+                td.append(time.perf_counter() - t1)
+            return blobs, dec, tc, td
+        (blobs, dec, tc, td), launches = _launches_since_reset(run)
+        _require_launched(f"Codec {cfg.color_space}", launches, needs)
+        ref = at.encode_batch(imgs, cfg)
+        if not all(_same_payloads(a, b) for a, b in zip(blobs, ref)):
+            raise AssertionError(f"Codec {cfg}: payloads differ from "
+                                 "encode_batch on the card")
+        err = max(float(np.abs(a.data - b.data).max())
+                  for a, b in zip(dec, at.decode_batch(ref)))
+        worst = min(psnr_db(im.data, d.data) for im, d in zip(imgs, dec))
+        log(f"  Codec {cfg.color_space} q{cfg.quality_range} blocks "
+            f"{cfg.block_size_range}: payload-identical to encode_batch, "
+            f"decode max abs vs decode_batch {err:.3g}, worst PSNR "
+            f"{worst:.3f} dB; per image compress "
+            f"{statistics.mean(tc) * 1e3:.3f} ms, decompress "
+            f"{statistics.mean(td) * 1e3:.3f} ms (mean of {len(imgs)}, "
+            f"{card}); launches {launches}")
+        if err > 1e-5 or worst <= 25.0:
+            raise AssertionError("Codec decodes out of tolerance")
+
+
+def metrics_phase(big, card):
+    """Phase 9: EvaluationMetrics on the card against the CPU."""
+    import os
+    import tempfile
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch.metrics import lpips
+    cfg = at.CodecConfig("YCoCg", QUALITY, BLOCKS, entropy_level=-1)
+    a = big[0].data
+    b = at.decode_batch(at.encode_batch(big[:1], cfg))[0].data
+    rng = np.random.default_rng(3)
+    params, in_ch = {}, 3
+    for i, (out, k, _, _) in enumerate(lpips.ALEX_CONVS):
+        params[f"conv{i}_w"] = (rng.standard_normal((out, in_ch, k, k))
+                                * 0.05).astype(np.float32)
+        params[f"conv{i}_b"] = (rng.standard_normal(out)
+                                * 0.05).astype(np.float32)
+        params[f"lin{i}_w"] = np.abs(rng.standard_normal(
+            (1, out, 1, 1))).astype(np.float32)
+        in_ch = out
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lpips_random.npz")
+        np.savez(path, **params)
+        gpu = at.EvaluationMetrics(a, b, lpips_weights=path)
+        cpu = at.EvaluationMetrics(a, b, lpips_weights=path, device="cpu")
+        for name in ("psnr", "ssim", "ms_ssim", "lpips"):
+            t0 = time.perf_counter()
+            g = getattr(gpu, name)()
+            ms = (time.perf_counter() - t0) * 1e3
+            c = getattr(cpu, name)()
+            d = abs(g - c) / (abs(c) if name == "lpips" else 1.0)
+            log(f"  {name}: card {g!r}, cpu {c!r}, "
+                f"{'relative ' if name == 'lpips' else ''}difference "
+                f"{d:.3g}; card call {ms:.3f} ms ({card})")
+            if not np.isfinite(g) or d > 1e-5:
+                raise AssertionError(f"{name}: card and CPU differ")
+
 
 SOURCES = {"histogram256": ("aejpeg_tpu_torch/csrc/histogram256.cu",
                             "aejpeg_tpu/ops/pallas_kernels.py:76"),
            "clahe_apply_gather": ("aejpeg_tpu_torch/csrc/clahe_apply.cu",
                                   "aejpeg_tpu/ops/pallas_kernels.py:299"),
            "clahe_lut_apply": ("aejpeg_tpu_torch/csrc/clahe_apply.cu",
-                               "aejpeg_tpu/ops/pallas_kernels.py:362")}
+                               "aejpeg_tpu/ops/pallas_kernels.py:362"),
+           "u8_to_unit": ("aejpeg_tpu_torch/csrc/u8_to_unit.cu",
+                          "aejpeg_tpu/ops/pallas_kernels.py:197")}
 
 
 def main() -> int:
@@ -454,6 +651,16 @@ def main() -> int:
 
     log("[6] torch.profiler, one warm batch each way")
     profile(cfg, big)
+
+    log(f"[7] colour spaces: encode_batch -> decode_batch, {SPACE_BATCH} x "
+        f"{H}x{W} on the card; card against CPU, 1 image each")
+    color_spaces(big, card)
+
+    log(f"[8] per-image Codec, {CODEC_IMAGES} x {H}x{W} on the card")
+    codec_phase(big, card)
+
+    log("[9] EvaluationMetrics, card against CPU")
+    metrics_phase(big, card)
 
     kernels = []
     for name, s in summary.items():

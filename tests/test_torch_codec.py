@@ -22,8 +22,12 @@ torch.set_num_threads(1)
 
 CASES = [("YCoCg", (20, 80), (4, 128), (128, 192)),
          ("YCbCr", (50, 50), (8, 8), (128, 192)),
-         ("YCoCg", (20, 80), (4, 32), (37, 53))]
-IDS = ["ycocg-q20-80-4-128", "ycbcr-uniform-8", "ycocg-boundary-37x53"]
+         ("YCoCg", (20, 80), (4, 32), (37, 53)),
+         ("ICtCp", (30, 70), (4, 16), (96, 128)),
+         ("ICaCb", (20, 80), (4, 32), (64, 96)),
+         ("JzAzBz", (20, 80), (4, 32), (64, 96))]
+IDS = ["ycocg-q20-80-4-128", "ycbcr-uniform-8", "ycocg-boundary-37x53",
+       "ictcp-411-4-16", "icacb-411-4-32", "jzazbz-4-32"]
 
 
 def _arrays(h, w, n, seed):

@@ -7,11 +7,15 @@ import pytest
 import torch
 
 from aejpeg_tpu import color as jcolor
+from aejpeg_tpu.color import transforms as JT
 from aejpeg_tpu_torch import color
+from aejpeg_tpu_torch.color import constants as C
+from aejpeg_tpu_torch.color import transforms as T
 
 torch.set_num_threads(1)
 
-SPACES = ["sRGB", "YCbCr", "YCoCg", "YCoCg-R", "XYZ", "OKLAB"]
+SPACES = ["sRGB", "YCbCr", "YCoCg", "YCoCg-R", "XYZ", "OKLAB", "ICtCp",
+          "ICaCb", "JzAzBz"]
 
 
 @pytest.fixture(scope="module")
@@ -57,8 +61,25 @@ def test_normalization_roundtrip(space):
                           x, atol=1e-6)
 
 
-@pytest.mark.parametrize("space", ["ICtCp", "ICaCb", "JzAzBz"])
-def test_pq_spaces_not_ported(space):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        color.convert("sRGB", space, torch.zeros((2, 3)))
-    assert space in color.get_color_spaces()
+def test_public_spaces():
+    assert color.get_color_spaces() == jcolor.get_color_spaces()
+    assert len(color.get_color_spaces()) == 7
+
+
+@pytest.mark.parametrize("m2", [C.PQ_M2, C.JZAZBZ_P], ids=["pq", "jzazbz"])
+def test_pq_transfer_matches_jax(m2):
+    """Both PQ directions within 1 float32 ulp of JAX's double-float32,
+    clamps included: y <= 0 -> c1**m2, and a signal whose numerator is
+    <= 0 -> 0."""
+    y = np.concatenate([[-1.0, 0.0, 1e-35, 1e-30, 1e-12],
+                        np.geomspace(1e-9, 1.0, 200)]).astype(np.float32)
+    got = T.pq_inverse_eotf(torch.from_numpy(y), m2).numpy()
+    want = np.asarray(JT.pq_inverse_eotf(jnp.asarray(y), m2))
+    np.testing.assert_allclose(got, want, rtol=1.2e-7, atol=0)
+    assert got[0] == got[1] == np.float32(C.PQ_C1 ** m2)
+    e = np.concatenate([[-0.5, 0.0, C.PQ_C1 ** m2 / 10], got[2:],
+                        np.linspace(0.0, 1.0, 101)]).astype(np.float32)
+    back = T.pq_eotf(torch.from_numpy(e), m2).numpy()
+    want = np.asarray(JT.pq_eotf(jnp.asarray(e), m2))
+    np.testing.assert_allclose(back, want, rtol=1e-6, atol=1e-30)
+    assert back[0] == back[1] == back[2] == 0.0

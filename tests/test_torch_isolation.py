@@ -72,6 +72,20 @@ def test_entry_points_raise_without_cuda(no_cuda):
     assert at.decode_batch([blob], device="cpu")[0].data.shape == (16, 16, 3)
 
 
+def test_codec_and_metrics_raise_without_cuda(no_cuda):
+    from aejpeg_tpu_torch.parallel import device_encode_uniform
+    arr = np.zeros((16, 16, 3), np.float32)
+    for make in (lambda: at.Codec(),
+                 lambda: at.EvaluationMetrics(arr, arr),
+                 lambda: device_encode_uniform(arr, "YCbCr")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    cfg = at.CodecConfig("YCbCr", (50, 50), (8, 8))
+    blob = at.Codec(cfg, device="cpu").compress(at.ImageData.from_array(arr))
+    assert at.Codec(device="cpu").decompress(blob).data.shape == (16, 16, 3)
+    assert at.EvaluationMetrics(arr, arr, device="cpu").psnr() > 100
+
+
 def test_numerics_pinned():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

@@ -101,10 +101,28 @@ def test_tap_weights_match_jax_table():
         full, jcanny._clahe_tile_weights(h, w, th, tw, 4, 4))
 
 
+@pytest.mark.parametrize("shape", [(2, 64, 96, 3), (256,), (7, 13)])
+def test_u8_to_unit_matches_jax(shape):
+    """Bitwise equal to the JAX package's Pallas LUT kernel (interpret mode
+    on the CPU), to its closed form and to numpy, every u8 value included."""
+    rng = np.random.default_rng(len(shape))
+    x = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    n = min(256, x.size)
+    x.reshape(-1)[:n] = np.arange(n)    # every value where 256 fit
+    got = K.u8_to_unit(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == shape
+    for want in (np.asarray(jpk.u8_to_unit_lut(jnp.asarray(x))),
+                 np.asarray(jpk.u8_to_unit_exact(jnp.asarray(x))),
+                 x.astype(np.float32) / 255):
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
 def test_cpu_wrappers_run_plain_versions():
     """CPU tensors take the plain versions: no launch is counted."""
     before = {k: c.n for k, c in K.LAUNCHES.items()}
     K.histogram256(torch.zeros((1, 2, 300), dtype=torch.int32))
+    K.u8_to_unit(torch.zeros((3, 5), dtype=torch.uint8))
     rng = np.random.default_rng(0)
     th, words, vecs = _words_and_vectors(rng, 1, 64, 96)
     K.clahe_apply_gather(torch.zeros((1, 64, 96), dtype=torch.int32),
@@ -115,7 +133,7 @@ def test_cpu_wrappers_run_plain_versions():
 
 
 @pytest.mark.parametrize("case", ["dtype", "rank", "contiguity", "words",
-                                  "taps"])
+                                  "taps", "u8-dtype", "u8-contiguity"])
 def test_wrappers_validate_inputs(case):
     rng = np.random.default_rng(1)
     th, words, vecs = _words_and_vectors(rng, 1, 64, 96)
@@ -129,6 +147,10 @@ def test_wrappers_validate_inputs(case):
         elif case == "contiguity":
             K.histogram256(torch.zeros((1, 8, 2), dtype=torch.int32)
                            .transpose(1, 2))
+        elif case == "u8-dtype":
+            K.u8_to_unit(torch.zeros((4, 3), dtype=torch.int32))
+        elif case == "u8-contiguity":
+            K.u8_to_unit(torch.zeros((4, 3), dtype=torch.uint8).t())
         elif case == "words":
             K.clahe_apply_gather(img, torch.from_numpy(words)[:, :, :128],
                                  *vt, th=th)
