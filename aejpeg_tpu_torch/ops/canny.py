@@ -152,6 +152,17 @@ def _clahe_interp_vectors(h: int, w: int, th: int, tw: int, gh: int,
             (1 - ya).astype(np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(table, device: torch.device, *key) -> tuple:
+    """The arrays of table(*key) (_clahe_interp_vectors or _clahe_taps) on
+    `device`, uploaded once per (shape, tiling, device); complete before
+    they are returned, so any stream may read them."""
+    out = tuple(torch.as_tensor(a, device=device) for a in table(*key))
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return out
+
+
 def clahe(img_u8: torch.Tensor, clip_limit: float = 0.75,
           grid=(4, 4)) -> torch.Tensor:
     """OpenCV-style CLAHE on (P, H, W) uint8: pad to a tile multiple
@@ -165,21 +176,19 @@ def clahe(img_u8: torch.Tensor, clip_limit: float = 0.75,
     tw = -(-w // gw)
     padded = _reflect101_pad(img_u8, 0, th * gh - h, 0, tw * gw - w)
     luts = _clahe_luts(padded, th, tw, gh, gw, clip_limit)  # (P, gh, gw, 256)
-    dev = img_u8.device
-    img = img_u8.to(torch.int32)
+    key = (img_u8.device, h, w, th, tw, gh, gw)
+    img = img_u8.contiguous()
 
     if clahe_gather_supported(h, w, th, gh, gw):
         # byte c of word (row, v) = LUT of tile column c (little-endian)
         words = (luts.to(torch.uint8).permute(0, 1, 3, 2).contiguous()
                  .view(torch.int32).squeeze(-1))            # (P, gh, 256)
-        vecs = [torch.as_tensor(a, device=dev)
-                for a in _clahe_interp_vectors(h, w, th, tw, gh, gw)]
+        vecs = _device_tables(_clahe_interp_vectors, *key)
         out = clahe_apply_gather(img, words, *vecs, th=th)
         return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
 
     lut = luts.reshape(-1, gh * gw, 256)
-    iy, ix, wts = [torch.as_tensor(a, device=dev)
-                   for a in _clahe_taps(h, w, th, tw, gh, gw)]
+    iy, ix, wts = _device_tables(_clahe_taps, *key)
     out = clahe_lut_apply(img, lut, iy, ix, wts, gw)
     return torch.clamp(torch.floor(out + 0.5), 0, 255).to(torch.uint8)
 

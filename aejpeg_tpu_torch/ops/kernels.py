@@ -156,7 +156,8 @@ def clahe_gather_supported(h: int, w: int, th: int, gh: int, gw: int) -> bool:
 
 def clahe_apply_gather_plain(img, words, ix0, ix1, xa, xa1, ya, ya1,
                              th: int) -> torch.Tensor:
-    """Plain version of clahe_apply_gather (same arguments)."""
+    """Plain version of clahe_apply_gather (same arguments); widens the
+    uint8 pixels itself."""
     p, h, w = img.shape
     gh = words.shape[1]
     k = torch.arange(h, device=img.device) // (th // 2)
@@ -181,7 +182,7 @@ def clahe_apply_gather(img: torch.Tensor, words: torch.Tensor,
                        xa: torch.Tensor, xa1: torch.Tensor,
                        ya: torch.Tensor, ya1: torch.Tensor,
                        th: int) -> torch.Tensor:
-    """(P, H, W) int32 pixels in [0, 255], (P, gh, 256) int32 packed LUT
+    """(P, H, W) uint8 pixels, (P, gh, 256) int32 packed LUT
     words (byte c = tile column c), per-column (W,) int32 tile-column
     indices ix0/ix1 and f32 weights xa/xa1, per-row (H,) f32 weights
     ya/ya1, tile height th -> (P, H, W) f32 blended LUT output (before
@@ -194,7 +195,7 @@ def clahe_apply_gather(img: torch.Tensor, words: torch.Tensor,
     p, h, w = img.shape
     gh = words.shape[1]
     dev = img.device
-    _check("clahe_apply_gather", img, torch.int32, (p, h, w), dev)
+    _check("clahe_apply_gather", img, torch.uint8, (p, h, w), dev)
     _check("clahe_apply_gather", words, torch.int32, (p, gh, 256), dev)
     for vec, dt, n in ((ix0, torch.int32, w), (ix1, torch.int32, w),
                        (xa, torch.float32, w), (xa1, torch.float32, w),
@@ -219,7 +220,8 @@ def clahe_apply_gather(img: torch.Tensor, words: torch.Tensor,
 
 
 def clahe_lut_apply_plain(img, lut, iy, ix, wts, gw: int) -> torch.Tensor:
-    """Plain version of clahe_lut_apply (same arguments)."""
+    """Plain version of clahe_lut_apply (same arguments); widens the uint8
+    pixels itself."""
     p, h, w = img.shape
     n_tiles = lut.shape[1]
     taps = (iy[:, None, :, None] * gw + ix[None, :, None, :]).reshape(
@@ -236,9 +238,10 @@ def clahe_lut_apply_plain(img, lut, iy, ix, wts, gw: int) -> torch.Tensor:
 def clahe_lut_apply(img: torch.Tensor, lut: torch.Tensor, iy: torch.Tensor,
                     ix: torch.Tensor, wts: torch.Tensor,
                     gw: int) -> torch.Tensor:
-    """(P, H, W) int32 pixels in [0, 255], (P, T, 256) f32 tile LUTs,
-    per-row (H, 2) int32 top/bottom tile rows iy, per-column (W, 2) int32
-    left/right tile columns ix, (H, W, 4) f32 tap weights in the order
+    """(P, H, W) uint8 pixels, (P, T, 256) f32 tile LUTs,
+    per-row (H, 2) int32 top/bottom tile rows iy in [0, T / gw), per-column
+    (W, 2) int32 left/right tile columns ix in [0, gw), (H, W, 4) f32 tap
+    weights in the order
     (iy0,ix0), (iy0,ix1), (iy1,ix0), (iy1,ix1), tile-grid width gw ->
     (P, H, W) f32 = sum of the 4 taps weight * LUT[tile, pixel] (before
     rounding), accumulated in tap order as acc = fma(w, lut, acc): the
@@ -250,16 +253,18 @@ def clahe_lut_apply(img: torch.Tensor, lut: torch.Tensor, iy: torch.Tensor,
     p, h, w = img.shape
     n_tiles = lut.shape[1]
     dev = img.device
-    _check("clahe_lut_apply", img, torch.int32, (p, h, w), dev)
+    _check("clahe_lut_apply", img, torch.uint8, (p, h, w), dev)
     _check("clahe_lut_apply", lut, torch.float32, (p, n_tiles, 256), dev)
     _check("clahe_lut_apply", iy, torch.int32, (h, 2), dev)
     _check("clahe_lut_apply", ix, torch.int32, (w, 2), dev)
     _check("clahe_lut_apply", wts, torch.float32, (h, w, 4), dev)
     if not _route("clahe_lut_apply", dev):
         return clahe_lut_apply_plain(img, lut, iy, ix, wts, gw)
-    if p > 65535 or wts.data_ptr() % 16:
-        raise ValueError("clahe_lut_apply: at most 65535 planes a call and "
-                         "16-byte aligned weights")
+    if (p > 65535 or n_tiles > 47 or wts.data_ptr() % 16
+            or lut.data_ptr() % 16 or iy.data_ptr() % 8 or ix.data_ptr() % 8):
+        raise ValueError("clahe_lut_apply: at most 65535 planes a call, 47 "
+                         "tiles (staged in 48 KB of shared memory), 16-byte "
+                         "aligned weights and LUTs, 8-byte aligned taps")
     out = torch.empty((p, h, w), dtype=torch.float32, device=dev)
     _launch("aej_clahe_lut_apply", dev, img.data_ptr(), lut.data_ptr(),
             iy.data_ptr(), ix.data_ptr(), wts.data_ptr(), out.data_ptr(),

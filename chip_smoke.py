@@ -9,9 +9,12 @@ Phases, each fatal on failure:
      build times;
   2. kernels against their plain PyTorch versions on the card, at the
      shapes the main path gives them (u8_to_unit also at every u8 value,
-     odd sizes and offset pointers), with times (CUDA events around 25
-     back-to-back calls), the plain version's time, one PyTorch library
-     call's time where one computes the same function (bitwise equal
+     odd sizes and offset pointers; the CLAHE gather also at shapes with
+     partial column strips and row bands), with times (CUDA events around
+     25 back-to-back calls; and the kernel's own device time per call,
+     from torch.profiler over the same loop, which tells a launch-bound
+     kernel from a host-bound one), the plain version's time, one PyTorch
+     library call's time where one computes the same function (bitwise equal
      first, for u8_to_unit), and the bound (least time the card could
      take: the larger of the bytes moved over the memory rate and the
      operations over the float32 rate);
@@ -119,12 +122,38 @@ def cuda_ms(fn, reps=REPS):
     return a.elapsed_time(b) / reps
 
 
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, kernel, reps=REPS):
+    """Device time of one fn() in the kernel named `kernel`: torch.profiler
+    over `reps` back-to-back calls (as cuda_ms makes them), the device time
+    of the events whose name holds `kernel`, over `reps`.  None when the
+    trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    if not hits:
+        return None
+    return sum(_dev_us(e) for e in hits) / 1e3 / reps
+
+
 # ------------------------------------------------------------------ phase 2
 
 
 def kernel_cases(dev):
     """Inputs at the main path's shapes: per kernel, [(label, args, plain,
-    kernel, library, bytes, ops, on_path)].  bytes: each input read once,
+    kernel, library, bytes, ops, on_path)].  The CLAHE kernels take the
+    uint8 planes the main path holds.  bytes: each input read once,
     each output written once; ops: one per histogram value, 9 flops per
     gather pixel (three mul + three FMAs), 8 per fallback pixel (four FMAs),
     one table lookup per u8 value.  on_path: the shape is one the phase-3
@@ -139,6 +168,10 @@ def kernel_cases(dev):
     def ints(*shape):
         return torch.randint(0, 256, shape, generator=g,
                              dtype=torch.int32).to(dev)
+
+    def bytes_(*shape):
+        return torch.randint(0, 256, shape, generator=g,
+                             dtype=torch.uint8).to(dev)
 
     # CLAHE tiles (4x4 grid) and percentile rows (8 per plane), luma 512x768
     # and chroma 256x384, for a 42-image batch
@@ -163,20 +196,25 @@ def kernel_cases(dev):
         return torch.randint(0, 256, (p, gh, gw, 256), generator=g).to(
             torch.float32).to(dev)
 
-    for p, h, w in ((BATCH, H, W), (2 * BATCH, H // 2, W // 2)):
-        th, tw = h // 4, w // 4
+    # the main path's luma and chroma planes; then partial column strips
+    # and row bands (4-byte groups), and a width that is not a multiple of
+    # 4 (scalar loads and stores)
+    for p, h, w, on_path in ((BATCH, H, W, True),
+                             (2 * BATCH, H // 2, W // 2, True),
+                             (3, 125, 200, False), (2, 64, 202, False)):
+        th, tw = -(-h // 4), -(-w // 4)
         words = (luts(p, 4, 4).to(torch.uint8).permute(0, 1, 3, 2)
                  .contiguous().view(torch.int32).squeeze(-1))
         vecs = [torch.as_tensor(a, device=dev)
                 for a in canny._clahe_interp_vectors(h, w, th, tw, 4, 4)]
-        args = (ints(p, h, w), words, *vecs)
-        nbytes = (p * h * w * 8 + words.numel() * 4
+        args = (bytes_(p, h, w), words, *vecs)
+        nbytes = (p * h * w * 5 + words.numel() * 4
                   + sum(v.numel() * 4 for v in vecs))
         cases["clahe_apply_gather"].append(
             (f"({p}, {h}, {w})", args,
              lambda *a, th=th: K.clahe_apply_gather_plain(*a, th=th),
              lambda *a, th=th: K.clahe_apply_gather(*a, th=th), None,
-             nbytes, 9 * p * h * w, True))
+             nbytes, 9 * p * h * w, on_path))
 
     sh, sw = SMALL
     for p, h, w in ((2, sh, sw), (4, sh // 2, sw // 2), (2, 96, 128),
@@ -184,8 +222,9 @@ def kernel_cases(dev):
         th, tw = -(-h // 4), -(-w // 4)
         iy, ix, wts = [torch.as_tensor(a, device=dev)
                        for a in canny._clahe_taps(h, w, th, tw, 4, 4)]
-        args = (ints(p, h, w), luts(p, 4, 4).reshape(p, 16, 256), iy, ix, wts)
-        nbytes = (p * h * w * 8 + p * 16 * 256 * 4 + iy.numel() * 4
+        args = (bytes_(p, h, w), luts(p, 4, 4).reshape(p, 16, 256), iy, ix,
+                wts)
+        nbytes = (p * h * w * 5 + p * 16 * 256 * 4 + iy.numel() * 4
                   + ix.numel() * 4 + wts.numel() * 4)
         cases["clahe_lut_apply"].append(
             (f"({p}, {h}, {w})", args,
@@ -197,9 +236,6 @@ def kernel_cases(dev):
     # multiple of 16; a flat run whose first byte is 4 past a 16-byte
     # boundary (vector body after a 12-byte head) and one 1 past it (the
     # output cannot align with it: scalar path only)
-    def bytes_(*shape):
-        return torch.randint(0, 256, shape, generator=g,
-                             dtype=torch.uint8).to(dev)
     run = bytes_(1 << 20)
     t255 = torch.tensor(255.0, dtype=torch.float32, device=dev)
     for label, x, on_path in (
@@ -228,7 +264,8 @@ def check_kernels(dev):
     import torch
     summary = {}
     for name, cases in kernel_cases(dev).items():
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0,
                "library_ms": 0.0 if cases[0][4] is not None else None,
                "max_abs_err": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
         for label, args, plain, kern, lib, nbytes, ops, on_path in cases:
@@ -245,13 +282,15 @@ def check_kernels(dev):
                     f"{name} {label}: kernel differs from its plain version "
                     f"(max abs {err})")
             ms = cuda_ms(lambda: kern(*args))
+            dms = device_ms(lambda: kern(*args), KERNEL_NAMES[name])
             pms = cuda_ms(lambda: plain(*args), reps=5)
             lms = cuda_ms(lib, reps=10) if lib is not None else None
             bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
             ops_ms = ops / H100_FP32_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
-            log(f"  {name} {label}: bitwise equal; kernel {ms:.4f} ms, "
-                f"plain {pms:.4f} ms, library "
+            log(f"  {name} {label}: bitwise equal; kernel {ms:.4f} ms "
+                f"(device {'not measured' if dms is None else f'{dms:.4f}'}"
+                f" ms), plain {pms:.4f} ms, library "
                 f"{'-' if lms is None else f'{lms:.4f} ms'}, bound "
                 f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB: {bytes_ms:.4f} ms; "
                 f"{ops / 1e6:.1f} M ops: {ops_ms:.4f} ms)"
@@ -260,6 +299,8 @@ def check_kernels(dev):
             if not on_path:
                 continue
             tot["ms"] += ms
+            tot["device_ms"] = (None if dms is None or tot["device_ms"] is None
+                                else tot["device_ms"] + dms)
             tot["plain_ms"] += pms
             tot["bound_ms"] += bound
             tot["bytes_ms"] += bytes_ms
@@ -446,16 +487,13 @@ def profile(cfg, big):
         events = prof.key_averages()
         kernels = [e for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA]
-
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-        busy = sum(dev_us(e) for e in kernels) / 1e3
+        busy = sum(_dev_us(e) for e in kernels) / 1e3
         log(f"  {name}: wall {wall * 1e3:.3f} ms (profiled), device busy "
             f"{busy:.3f} ms ({busy / (wall * 1e3):.3f} of wall), "
             f"{sum(e.count for e in kernels)} device activities")
-        for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
-            log(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:100]}")
+        for e in sorted(kernels, key=_dev_us, reverse=True)[:12]:
+            log(f"    {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
+                f"{e.key[:100]}")
         eq = [e.count for e in events if e.key == "aten::equal"]
         if name == "encode_batch" and eq:
             log(f"    hysteresis convergence checks (aten::equal): {eq[0]}")
@@ -594,6 +632,11 @@ def metrics_phase(big, card):
                 raise AssertionError(f"{name}: card and CPU differ")
 
 
+# each kernel's __global__ function, as torch.profiler names it
+KERNEL_NAMES = {"histogram256": "hist256_kernel",
+                "clahe_apply_gather": "clahe_gather_kernel",
+                "clahe_lut_apply": "clahe_lut_apply_kernel",
+                "u8_to_unit": "u8_to_unit_kernel"}
 SOURCES = {"histogram256": ("aejpeg_tpu_torch/csrc/histogram256.cu",
                             "aejpeg_tpu/ops/pallas_kernels.py:76"),
            "clahe_apply_gather": ("aejpeg_tpu_torch/csrc/clahe_apply.cu",
@@ -668,6 +711,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                        "device_ms": s["device_ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                         "bound_by": ("bytes" if s["bytes_ms"] >= s["ops_ms"]
                                      else "operations"),

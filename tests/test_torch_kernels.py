@@ -34,7 +34,7 @@ def test_histogram256_matches_jax(t, n, pad):
 
 
 def _words_and_vectors(rng, p, h, w):
-    th, tw = h // 4, w // 4
+    th, tw = -(-h // 4), -(-w // 4)
     luts = rng.integers(0, 256, (p, 4, 4, 256)).astype(np.int32)
     words = (luts[:, :, 0] | (luts[:, :, 1] << 8) | (luts[:, :, 2] << 16)
              | (luts[:, :, 3] << 24))                     # (p, gh, 256)
@@ -42,12 +42,13 @@ def _words_and_vectors(rng, p, h, w):
     return th, words.astype(np.int32), vecs
 
 
-@pytest.mark.parametrize("h,w", [(128, 192), (64, 96)])
+@pytest.mark.parametrize("h,w", [(128, 192), (64, 96), (125, 200)])
 def test_clahe_apply_gather_matches_jax(h, w):
     """Bitwise: same bytes, OpenCV's association, the reference's FMA
-    rounding."""
+    rounding.  The port takes the uint8 plane, JAX its int32 widening;
+    125x200 (tiles 32x50) leaves partial column strips and row bands."""
     rng = np.random.default_rng(h)
-    img = rng.integers(0, 256, (2, h, w), dtype=np.int32)
+    img = rng.integers(0, 256, (2, h, w), dtype=np.uint8)
     th, words, vecs = _words_and_vectors(rng, 2, h, w)
     assert K.clahe_gather_supported(h, w, th, 4, 4)
     got = K.clahe_apply_gather(
@@ -55,7 +56,7 @@ def test_clahe_apply_gather_matches_jax(h, w):
         *[torch.from_numpy(v.reshape(-1)) for v in vecs], th=th).numpy()
     for i in range(2):
         want = np.asarray(jpk.clahe_apply_gather(
-            jnp.asarray(img[i]), jnp.asarray(words[i]),
+            jnp.asarray(img[i].astype(np.int32)), jnp.asarray(words[i]),
             *[jnp.asarray(v) for v in vecs], th=th, gh=4))
         np.testing.assert_array_equal(got[i].view(np.uint32),
                                       want.view(np.uint32))
@@ -69,12 +70,12 @@ def test_clahe_lut_apply_matches_jax(h, w):
     rng = np.random.default_rng(w)
     th, tw = -(-h // 4), -(-w // 4)
     assert not K.clahe_gather_supported(h, w, th, 4, 4)
-    img = rng.integers(0, 256, (h, w), dtype=np.int32)
+    img = rng.integers(0, 256, (h, w), dtype=np.uint8)
     luts = rng.integers(0, 256, (16, 256)).astype(np.float32)
     wts = jcanny._clahe_tile_weights(h, w, th, tw, 4, 4)
     want = np.asarray(jpk.clahe_lut_apply(
-        jnp.asarray(img), jnp.asarray(luts.T).astype(jnp.bfloat16),
-        jnp.asarray(wts)))
+        jnp.asarray(img.astype(np.int32)),
+        jnp.asarray(luts.T).astype(jnp.bfloat16), jnp.asarray(wts)))
     iy, ix, w4 = tcanny._clahe_taps(h, w, th, tw, 4, 4)
     got = K.clahe_lut_apply(
         torch.from_numpy(img)[None], torch.from_numpy(luts)[None],
@@ -125,20 +126,84 @@ def test_cpu_wrappers_run_plain_versions():
     K.u8_to_unit(torch.zeros((3, 5), dtype=torch.uint8))
     rng = np.random.default_rng(0)
     th, words, vecs = _words_and_vectors(rng, 1, 64, 96)
-    K.clahe_apply_gather(torch.zeros((1, 64, 96), dtype=torch.int32),
+    K.clahe_apply_gather(torch.zeros((1, 64, 96), dtype=torch.uint8),
                          torch.from_numpy(words),
                          *[torch.from_numpy(v.reshape(-1)) for v in vecs],
                          th=th)
+    iy, ix, w4 = tcanny._clahe_taps(37, 53, 10, 14, 4, 4)
+    K.clahe_lut_apply(torch.zeros((1, 37, 53), dtype=torch.uint8),
+                      torch.zeros((1, 16, 256)), torch.from_numpy(iy),
+                      torch.from_numpy(ix), torch.from_numpy(w4), gw=4)
     assert {k: c.n for k, c in K.LAUNCHES.items()} == before
 
 
+@pytest.mark.parametrize("kernel", ["gather", "lut"])
+def test_plain_versions_widen_uint8(kernel):
+    """Each plain version on a uint8 plane equals, bitwise, the same plane
+    widened to int32 first, the pixels the kernels took before."""
+    rng = np.random.default_rng(5)
+    if kernel == "gather":
+        h, w = 64, 96
+        th, words, vecs = _words_and_vectors(rng, 2, h, w)
+        args = [torch.from_numpy(words)] + [torch.from_numpy(v.reshape(-1))
+                                            for v in vecs]
+
+        def run(img):
+            return K.clahe_apply_gather_plain(img, *args, th=th)
+    else:
+        h, w = 37, 53
+        iy, ix, w4 = tcanny._clahe_taps(h, w, 10, 14, 4, 4)
+        args = [torch.from_numpy(rng.integers(0, 256, (2, 16, 256))
+                                 .astype(np.float32))] + [
+            torch.from_numpy(a) for a in (iy, ix, w4)]
+
+        def run(img):
+            return K.clahe_lut_apply_plain(img, *args, gw=4)
+    img = torch.from_numpy(rng.integers(0, 256, (2, h, w), dtype=np.uint8))
+    img[0, 0, :2] = torch.tensor([0, 255], dtype=torch.uint8)
+    got = run(img)
+    want = run(img.to(torch.int32))
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("h,w", [(512, 768), (256, 384), (128, 192),
+                                 (125, 200)],
+                         ids=["luma", "chroma", "128x192", "125x200"])
+def test_inner_blend_fma_is_exact(h, w):
+    """The gather kernel computes its inner blends TL*xa1 + TR*xa with the
+    hardware FMA, the plain version as round_f32(f64(TL)*f64(xa1) + f64(c))
+    with c = f32(TR*xa).  The two are one and the same rounding when the
+    float64 sum is exact: TwoSum's error term is 0 for every TL, TR in
+    0..255 and every column's (xa, xa1), exhaustively, at the main path's
+    widths (luma, chroma) and the tests' gather shapes."""
+    th, tw = -(-h // 4), -(-w // 4)
+    _, _, xa, xa1, _, _ = tcanny._clahe_interp_vectors(h, w, th, tw, 4, 4)
+    pairs = np.unique(np.stack([xa, xa1], 1), axis=0)
+    v = np.arange(256, dtype=np.float32)
+    tl = np.repeat(v, 256)[None, :]                     # (1, 65536)
+    tr = np.tile(v, 256)[None, :]
+    for chunk in np.array_split(pairs, max(1, len(pairs) // 16)):
+        a32, a132 = chunk[:, :1], chunk[:, 1:]
+        prod = tl.astype(np.float64) * a132.astype(np.float64)   # exact
+        c = (tr * a32).astype(np.float64)           # f32 product, rounded
+        s = prod + c
+        bb = s - prod
+        err = (prod - (s - bb)) + (c - bb)
+        assert not err.any(), "inexact float64 sum: __fmaf_rn != fma32"
+    assert len(pairs) >= tw
+
+
 @pytest.mark.parametrize("case", ["dtype", "rank", "contiguity", "words",
-                                  "taps", "u8-dtype", "u8-contiguity"])
+                                  "taps", "u8-dtype", "u8-contiguity",
+                                  "pixel-dtype", "taps-pixel-dtype"])
 def test_wrappers_validate_inputs(case):
     rng = np.random.default_rng(1)
     th, words, vecs = _words_and_vectors(rng, 1, 64, 96)
     vt = [torch.from_numpy(v.reshape(-1)) for v in vecs]
-    img = torch.zeros((1, 64, 96), dtype=torch.int32)
+    img = torch.zeros((1, 64, 96), dtype=torch.uint8)
+    iy, ix, w4 = [torch.from_numpy(a)
+                  for a in tcanny._clahe_taps(64, 96, 16, 24, 4, 4)]
     with pytest.raises((TypeError, ValueError)):
         if case == "dtype":
             K.histogram256(torch.zeros((1, 2, 8), dtype=torch.int64))
@@ -154,8 +219,12 @@ def test_wrappers_validate_inputs(case):
         elif case == "words":
             K.clahe_apply_gather(img, torch.from_numpy(words)[:, :, :128],
                                  *vt, th=th)
+        elif case == "pixel-dtype":
+            K.clahe_apply_gather(img.to(torch.int32), torch.from_numpy(words),
+                                 *vt, th=th)
+        elif case == "taps-pixel-dtype":
+            K.clahe_lut_apply(img.to(torch.int32), torch.zeros((1, 16, 256)),
+                              iy, ix, w4, gw=4)
         else:
-            K.clahe_lut_apply(img, torch.zeros((1, 16, 256)),
-                              torch.zeros((64, 2), dtype=torch.int32),
-                              torch.zeros((96, 2), dtype=torch.int32),
+            K.clahe_lut_apply(img, torch.zeros((1, 16, 256)), iy, ix,
                               torch.zeros((64, 96, 16)), gw=4)
