@@ -197,9 +197,11 @@ def to_host(t: torch.Tensor, key: str) -> np.ndarray:
 
 
 def _build_plans(cfg: CodecConfig, layer_shapes, levels_bits: np.ndarray,
-                 band: Optional[Tuple[int, int]], b: int):
+                 band: Optional[Tuple[int, int]], b: int,
+                 packed_band: Optional[Tuple[int, int]] = None):
     """Quadtree plans per (image, layer) from the bit-packed pooled levels:
-    one batched C++ call plans all B x 3 layers."""
+    one batched C++ call plans all B x 3 layers.  `packed_band` is the
+    level band _stage_a packed (default: `band`); it must cover `band`."""
     mn, mx = cfg.block_size_range
     if band is None:
         return [[qt.uniform_plan(lh, lw, mn) for (lh, lw) in layer_shapes]
@@ -207,12 +209,14 @@ def _build_plans(cfg: CodecConfig, layer_shapes, levels_bits: np.ndarray,
     k_lo, k_hi = band
     roots = [qt.root_size_for(lh, lw) for (lh, lw) in layer_shapes]
     # bit offset of each (layer, level) in _stage_a's packed row: layers in
-    # order, levels k_lo..k_hi, (root >> k)^2 bits each
+    # order, levels of the packed band, (root >> k)^2 bits each
+    p_lo, p_hi = packed_band or band
     bit_offs = np.zeros((3, k_hi - k_lo + 1), np.int64)
     off = 0
     for li, root in enumerate(roots):
-        for k in range(k_lo, k_hi + 1):
-            bit_offs[li, k - k_lo] = off
+        for k in range(p_lo, p_hi + 1):
+            if k_lo <= k <= k_hi:
+                bit_offs[li, k - k_lo] = off
             off += (root >> k) ** 2
     res = native_entropy.build_plans_batch(
         levels_bits, roots, [s[0] for s in layer_shapes],

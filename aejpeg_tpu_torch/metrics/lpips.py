@@ -72,6 +72,20 @@ class LPIPS(nn.Module):
             total = total + torch.mean(torch.sum(d * lin, dim=1))
         return total
 
+    def unit_features(self, x: torch.Tensor):
+        """(N, 3, H, W) images in [0, 1] -> the 5 channel-unit-normalized
+        feature maps (those of an original can serve many distances)."""
+        return [_unit_normalize(f) for f in self.features(x * 2.0 - 1.0)]
+
+    def distances(self, fa, fb) -> torch.Tensor:
+        """Per-image distances (N,) between two unit_features lists."""
+        total = torch.zeros((fa[0].shape[0],), dtype=torch.float32,
+                            device=fa[0].device)
+        for a, b, lin in zip(fa, fb, self.lins):
+            total = total + torch.mean(torch.sum((a - b) ** 2 * lin, dim=1),
+                                       dim=(1, 2))
+        return total
+
 
 def _unit_normalize(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     return f / (torch.sqrt(torch.sum(f ** 2, dim=1, keepdim=True)) + eps)

@@ -71,21 +71,27 @@ def _filter_valid(img: torch.Tensor, k: np.ndarray) -> torch.Tensor:
 
 
 def _avg_pool(img: torch.Tensor, f: int) -> torch.Tensor:
-    """(C, H, W) average pool with stride f (floor sizes, F.avg_pool2d
+    """(..., H, W) average pool with stride f (floor sizes, F.avg_pool2d
     semantics), rounded as XLA computes the JAX package's mean: the window
     summed in raster order, times the float32 reciprocal of f*f."""
-    c, h, w = img.shape
+    h, w = img.shape[-2:]
     hh, ww = h // f, w // f
-    v = img[:, :hh * f, :ww * f].reshape(c, hh, f, ww, f)
-    acc = v[:, :, 0, :, 0]
+    v = img[..., :hh * f, :ww * f].reshape(*img.shape[:-2], hh, f, ww, f)
+    acc = v[..., 0, :, 0]
     for k in range(1, f * f):
-        acc = acc + v[:, :, k // f, :, k % f]
+        acc = acc + v[..., k // f, :, k % f]
     return acc * float(np.float32(1) / np.float32(f * f))
 
 
+def _mean32(t: torch.Tensor, dims) -> torch.Tensor:
+    t = t.to(torch.float64)
+    return (t.mean() if dims is None else t.mean(dim=dims)).to(torch.float32)
+
+
 def _ssim_components(x: torch.Tensor, y: torch.Tensor, data_range: float,
-                     k1=0.01, k2=0.03):
-    """(C, H, W) inputs -> (mean ssim, mean cs) over the valid map.  The
+                     k1=0.01, k2=0.03, dims=None):
+    """(C, H, W) inputs -> (mean ssim, mean cs) over the valid map; with
+    `dims`, (..., C, H, W) inputs and means over those dims only.  The
     maps match the JAX package's bit for bit; their means are accumulated
     in float64 and rounded once, where JAX's float32 mean drifts (8e-6 on
     a (3, 27, 30) map)."""
@@ -102,8 +108,7 @@ def _ssim_components(x: torch.Tensor, y: torch.Tensor, data_range: float,
     sigma_xy = _filter_valid(x * y, k) - mu_xy
     cs = (2 * sigma_xy + c2) / (sigma_x + sigma_y + c2)
     ssim_map = ((2 * mu_xy + c1) / (mu_xx + mu_yy + c1)) * cs
-    return (ssim_map.to(torch.float64).mean().to(torch.float32),
-            cs.to(torch.float64).mean().to(torch.float32))
+    return _mean32(ssim_map, dims), _mean32(cs, dims)
 
 
 def _to_chw(img: torch.Tensor) -> torch.Tensor:
@@ -124,20 +129,60 @@ def ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
     return _ssim_components(xc, yc, data_range)[0]
 
 
+def _check_ms_ssim_size(xc: torch.Tensor, levels: int) -> None:
+    min_side = (11 - 1) * 2 ** (levels - 1) + 1
+    if min(xc.shape[-2:]) < min_side:
+        raise ValueError(
+            f"ms_ssim requires images of at least {min_side}px per side "
+            f"(got {tuple(xc.shape[-2:])}); piq imposes the same bound")
+
+
 def ms_ssim(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
             weights=MS_SSIM_WEIGHTS) -> torch.Tensor:
     """Multi-scale SSIM (Wang et al.; piq.multi_scale_ssim semantics with
     relu'd components)."""
     xc, yc = _to_chw(x), _to_chw(y)
     levels = len(weights)
-    min_side = (11 - 1) * 2 ** (levels - 1) + 1
-    if min(xc.shape[-2:]) < min_side:
-        raise ValueError(
-            f"ms_ssim requires images of at least {min_side}px per side "
-            f"(got {tuple(xc.shape[-2:])}); piq imposes the same bound")
+    _check_ms_ssim_size(xc, levels)
     out = torch.ones((), dtype=torch.float32, device=xc.device)
     for i, wgt in enumerate(weights):
         s, cs = _ssim_components(xc, yc, data_range)
+        out = out * torch.clamp(s if i == levels - 1 else cs, min=0.0) ** wgt
+        if i < levels - 1:
+            xc = _avg_pool(xc, 2)
+            yc = _avg_pool(yc, 2)
+    return out
+
+
+def psnr_batch(x: torch.Tensor, y: torch.Tensor,
+               data_range: float = 1.0) -> torch.Tensor:
+    """psnr of each image of (B, ...) batches -> (B,)."""
+    d = x.to(torch.float32) - y.to(torch.float32)
+    mse = _mean32((d * d).flatten(1), 1)
+    return 10.0 * torch.log10(data_range ** 2 / torch.clamp(mse, min=1e-12))
+
+
+def ssim_batch(x: torch.Tensor, y: torch.Tensor,
+               data_range: float = 1.0) -> torch.Tensor:
+    """ssim of each (H, W) image of (B, H, W) batches -> (B,)."""
+    xc, yc = x.to(torch.float32)[:, None], y.to(torch.float32)[:, None]
+    f = max(1, round(min(xc.shape[-2], xc.shape[-1]) / 256))
+    if f > 1:
+        xc = _avg_pool(xc, f)
+        yc = _avg_pool(yc, f)
+    return _ssim_components(xc, yc, data_range, dims=(1, 2, 3))[0]
+
+
+def ms_ssim_batch(x: torch.Tensor, y: torch.Tensor, data_range: float = 1.0,
+                  weights=MS_SSIM_WEIGHTS) -> torch.Tensor:
+    """ms_ssim of each (H, W, C) image of (B, H, W, C) batches -> (B,)."""
+    xc = x.to(torch.float32).permute(0, 3, 1, 2)
+    yc = y.to(torch.float32).permute(0, 3, 1, 2)
+    levels = len(weights)
+    _check_ms_ssim_size(xc, levels)
+    out = torch.ones(xc.shape[0], dtype=torch.float32, device=xc.device)
+    for i, wgt in enumerate(weights):
+        s, cs = _ssim_components(xc, yc, data_range, dims=(1, 2, 3))
         out = out * torch.clamp(s if i == levels - 1 else cs, min=0.0) ** wgt
         if i < levels - 1:
             xc = _avg_pool(xc, 2)

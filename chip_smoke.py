@@ -40,14 +40,33 @@ Phases, each fatal on failure:
      compress / decompress ms, the kernels it launched;
   9. EvaluationMetrics (psnr, ssim, ms_ssim, and LPIPS with random weights
      at AlexNet's widths) on the card against the CPU, within 1e-5
-     (relative for LPIPS).
+     (relative for LPIPS);
+ 10. the batched metric sweep (BatchedMetricsSweep) on 16 x 512x768 + 2 x
+     200x300 PNGs written and read back by the port's image I/O, YCbCr and
+     ICtCp x 3 quality x 6 block ranges, LPIPS on: every row present, no
+     error, every kernel launched; its wall time, image-combos/s and
+     Mpix-combos/s, its stage split (a second run with timings=, each stage
+     synchronized, the metrics each on their own); 4 combos
+     per space against encode_batch -> decode_batch -> EvaluationMetrics on
+     the card (ratio strings identical, metrics within the JAX package's
+     own bounds 2e-2 dB / 2e-3, LPIPS within 1e-4); 2 images x 2 combos
+     against the sweep on the CPU (ratios identical, metrics within 1e-4);
+ 11. the CLI (`python -m aejpeg_tpu_torch.cli`) in subprocesses on the
+     default device: compress 2 PNGs (containers byte-identical to
+     encode_stream in process), info, decompress (>= 25 dB), preview;
+ 12. the speed table, the quadtree visualizer (leaf counts card == CPU) and
+     the normalization constants (YCoCg card vs CPU within 1e-6 relative;
+     all seven spaces against the shipped constants).
 
 Prints the kernels as one JSON line, the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Exits non-zero without that line when
 CUDA is unavailable or any phase fails.
 """
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -65,6 +84,13 @@ BATCH_REPS = 5            # warm batches timed in phase 5
 SPACE_BATCH = 8           # images per colour space in phase 7
 SPACE_REPS = 3            # warm batches timed per space in phase 7
 CODEC_IMAGES = 4          # images through the per-image Codec in phase 8
+SWEEP_IMAGES = 16         # 512x768 images of the phase-10 sweep
+SWEEP_SPACES = ("YCbCr", "ICtCp")
+SWEEP_QUALITY_VALUES = (25, 75)        # 3 quality ranges
+SWEEP_BLOCK_VALUES = (4, 16, 128)      # 6 block ranges
+SWEEP_CHECK_QUALITY = (25, 75)         # combos held to the decode path
+SWEEP_CHECK_BLOCKS = ((16, 16), (4, 16), (16, 128), (4, 128))
+SWEEP_CPU_COMBOS = ([(25, 75)], [(4, 16), (16, 128)])
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12   # CUDA-core rate, also used for the integer ops
 
@@ -595,15 +621,10 @@ def codec_phase(big, card):
             raise AssertionError("Codec decodes out of tolerance")
 
 
-def metrics_phase(big, card):
-    """Phase 9: EvaluationMetrics on the card against the CPU."""
-    import os
-    import tempfile
-    import aejpeg_tpu_torch as at
+def write_lpips_weights(path):
+    """Random LPIPS weights at AlexNet's widths (the real ones are not in
+    the repository), as the .npz the port loads."""
     from aejpeg_tpu_torch.metrics import lpips
-    cfg = at.CodecConfig("YCoCg", QUALITY, BLOCKS, entropy_level=-1)
-    a = big[0].data
-    b = at.decode_batch(at.encode_batch(big[:1], cfg))[0].data
     rng = np.random.default_rng(3)
     params, in_ch = {}, 3
     for i, (out, k, _, _) in enumerate(lpips.ALEX_CONVS):
@@ -614,9 +635,20 @@ def metrics_phase(big, card):
         params[f"lin{i}_w"] = np.abs(rng.standard_normal(
             (1, out, 1, 1))).astype(np.float32)
         in_ch = out
+    np.savez(path, **params)
+    return path
+
+
+def metrics_phase(big, card):
+    """Phase 9: EvaluationMetrics on the card against the CPU."""
+    import os
+    import tempfile
+    import aejpeg_tpu_torch as at
+    cfg = at.CodecConfig("YCoCg", QUALITY, BLOCKS, entropy_level=-1)
+    a = big[0].data
+    b = at.decode_batch(at.encode_batch(big[:1], cfg))[0].data
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "lpips_random.npz")
-        np.savez(path, **params)
+        path = write_lpips_weights(os.path.join(tmp, "lpips_random.npz"))
         gpu = at.EvaluationMetrics(a, b, lpips_weights=path)
         cpu = at.EvaluationMetrics(a, b, lpips_weights=path, device="cpu")
         for name in ("psnr", "ssim", "ms_ssim", "lpips"):
@@ -630,6 +662,258 @@ def metrics_phase(big, card):
                 f"{d:.3g}; card call {ms:.3f} ms ({card})")
             if not np.isfinite(g) or d > 1e-5:
                 raise AssertionError(f"{name}: card and CPU differ")
+
+
+# --------------------------------------------------------------- phases 10-12
+
+
+def _csv_rows(path):
+    import csv
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    keys = ("image_name", "color_space", "min_quality", "max_quality",
+            "min_block_size", "max_block_size")
+    out = {tuple(r[k] for k in keys): r for r in rows}
+    if len(out) != len(rows):
+        raise AssertionError(f"{path}: duplicate rows")
+    return out
+
+
+def _write_pngs(images, tmp, prefix):
+    paths = []
+    for i, im in enumerate(images):
+        path = os.path.join(tmp, f"{prefix}{i:02d}.png")
+        im.save(path)
+        paths.append(path)
+    return paths
+
+
+def sweep_phase(big, small, card):
+    """Phase 10: BatchedMetricsSweep on the card, checked against the
+    decode path on the card and against the sweep on the CPU; returns the
+    launch counts of its run."""
+    import tempfile
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch.harness.sweep_batched import BatchedMetricsSweep
+    from aejpeg_tpu_torch.io.image import ImageData
+    from aejpeg_tpu_torch.metrics.lpips import lpips_distance
+    qv, bv = SWEEP_QUALITY_VALUES, SWEEP_BLOCK_VALUES
+    qrs = [(a, b) for a in qv for b in qv if a <= b]
+    brs = [(a, b) for a in bv for b in bv if a <= b]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = (_write_pngs(big[:SWEEP_IMAGES], tmp, "live")
+                 + _write_pngs(small, tmp, "small"))
+        loaded = [ImageData.load(p) for p in paths]
+        src = big[:SWEEP_IMAGES] + small
+        if not all(np.array_equal(a.data, b.data)
+                   for a, b in zip(loaded, src)):
+            raise AssertionError("PNG write -> read changed the pixels")
+        log(f"  {len(paths)} PNGs written and read back bit-exact "
+            f"({time.perf_counter() - t0:.3f} s)")
+        weights = write_lpips_weights(os.path.join(tmp, "lpips.npz"))
+
+        def sweep(out, files=paths, combos=None, device=None, timings=None):
+            s = BatchedMetricsSweep(
+                files, out, color_spaces=SWEEP_SPACES,
+                quality_ranges=combos[0] if combos else qrs,
+                block_size_ranges=combos[1] if combos else brs,
+                entropy_level=-1, progress_every=10 ** 9, with_lpips=True,
+                lpips_weights=weights, device=device, timings=timings)
+            s.run()
+            if s.errors:
+                raise AssertionError(f"sweep errors: {s.errors[:3]}")
+            return _csv_rows(out)
+
+        out = os.path.join(tmp, "sweep.csv")
+        t0 = time.perf_counter()
+        rows, launches = _launches_since_reset(lambda: sweep(out))
+        wall = time.perf_counter() - t0
+        n_combos = len(SWEEP_SPACES) * len(qrs) * len(brs)
+        if len(rows) != len(paths) * n_combos:
+            raise AssertionError(f"sweep wrote {len(rows)} rows, want "
+                                 f"{len(paths) * n_combos}")
+        _require_launched("sweep", launches, launches)
+        mpix = sum(im.original_shape[0] * im.original_shape[1]
+                   for im in src) / 1e6 * n_combos
+        log(f"  sweep: {len(rows)} rows ({len(paths)} images x {n_combos} "
+            f"combos) in {wall:.3f} s (first run: includes warm-up): "
+            f"{len(rows) / wall:.3f} image-combos/s, {mpix / wall:.3f} "
+            f"Mpix-combos/s ({card}); launches {launches}")
+        st = {}
+        t0 = time.perf_counter()
+        sweep(os.path.join(tmp, "timed.csv"), timings=st)
+        wall2 = time.perf_counter() - t0
+        log(f"  second run, each stage synchronized: {wall2:.3f} s, "
+            f"{len(rows) / wall2:.3f} image-combos/s; stages s "
+            + json.dumps({k: round(v, 4) for k, v in st.items()}))
+
+        gaps = {"psnr": 0.0, "ssim": 0.0, "ms_ssim": 0.0, "lpips": 0.0}
+        n_same = n_all = 0
+        for space in SWEEP_SPACES:
+            for br in SWEEP_CHECK_BLOCKS:
+                cfg = at.CodecConfig(space, SWEEP_CHECK_QUALITY, br,
+                                     entropy_level=-1)
+                for group in (list(range(SWEEP_IMAGES)),
+                              list(range(SWEEP_IMAGES, len(paths)))):
+                    imgs = [loaded[i] for i in group]
+                    blobs = at.encode_batch(imgs, cfg)
+                    for i, img, blob, dec in zip(group, imgs, blobs,
+                                                 at.decode_batch(blobs)):
+                        row = rows[(paths[i], space,
+                                    str(SWEEP_CHECK_QUALITY[0]),
+                                    str(SWEEP_CHECK_QUALITY[1]),
+                                    str(br[0]), str(br[1]))]
+                        ev = at.EvaluationMetrics(img, dec)
+                        want = {"psnr": ev.psnr(), "ssim": ev.ssim(),
+                                "ms_ssim": ev.ms_ssim(),
+                                "lpips": float(lpips_distance(
+                                    img.data, dec.data, weights))}
+                        ratio = f"{img.raw_rgb_bytes / len(blob):.4f}"
+                        if row["compression_ratio"] != ratio:
+                            raise AssertionError(
+                                f"{space} {br} {paths[i]}: ratio "
+                                f"{row['compression_ratio']} != {ratio}")
+                        for m, v in want.items():
+                            gaps[m] = max(gaps[m], abs(float(row[m]) - v))
+                            if m != "lpips":
+                                n_all += 1
+                                n_same += row[m] == f"{v:.4f}"
+        log(f"  against encode_batch -> decode_batch -> EvaluationMetrics "
+            f"on the card ({len(SWEEP_SPACES)} spaces x "
+            f"{len(SWEEP_CHECK_BLOCKS)} combos x {len(paths)} images): "
+            f"ratio strings identical; {n_same}/{n_all} psnr/ssim/ms_ssim "
+            f"strings identical; largest gaps {gaps}")
+        if gaps["psnr"] > 2e-2 or max(gaps["ssim"], gaps["ms_ssim"]) > 2e-3 \
+                or gaps["lpips"] > 1e-4:
+            raise AssertionError("sweep metrics out of tolerance against "
+                                 "the decode path")
+
+        cpu_files = paths[:2]
+        cpu_rows = sweep(os.path.join(tmp, "cpu.csv"), files=cpu_files,
+                         combos=SWEEP_CPU_COMBOS, device="cpu")
+        worst = 0.0
+        for key, row in cpu_rows.items():
+            if row["compression_ratio"] != rows[key]["compression_ratio"]:
+                raise AssertionError(f"{key}: card and CPU ratios differ")
+            for m in ("psnr", "ssim", "ms_ssim", "lpips"):
+                worst = max(worst, abs(float(row[m])
+                                       - float(rows[key][m])))
+        log(f"  card against CPU, {len(cpu_rows)} rows: ratio strings "
+            f"identical, largest metric gap {worst:.3g}")
+        if worst > 1e-4:
+            raise AssertionError("sweep card vs CPU out of tolerance")
+    return launches
+
+
+def cli_phase(big, card):
+    """Phase 11: the CLI in subprocesses on the default device."""
+    import tempfile
+    import aejpeg_tpu_torch as at
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run(*args):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "aejpeg_tpu_torch.cli", *args], cwd=root,
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=root))
+        if res.returncode != 0:
+            raise AssertionError(f"cli {args[0]} exited {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+        log(f"  cli {args[0]}: exit 0 ({time.perf_counter() - t0:.3f} s)")
+        return res.stdout
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _write_pngs(big[:2], tmp, "cli")
+        out = os.path.join(tmp, "out")
+        run("compress", *paths, "-o", out, "--color-space", "YCoCg",
+            "--quality", *map(str, QUALITY), "--blocks", *map(str, BLOCKS))
+        cfg = at.CodecConfig("YCoCg", QUALITY, BLOCKS)
+        want, launches = _launches_since_reset(lambda: at.encode_stream(
+            [at.ImageData.load(p) for p in paths], cfg))
+        _require_launched("encode_stream of the CLI's images", launches,
+                          ("u8_to_unit", "histogram256",
+                           "clahe_apply_gather"))
+        ajpgs = [os.path.join(out, f"cli{i:02d}.ajpg")
+                 for i in range(len(paths))]
+        for path, blob in zip(ajpgs, want):
+            with open(path, "rb") as f:
+                if f.read() != blob:
+                    raise AssertionError(f"{path} differs from encode_stream")
+        log("  .ajpg files byte-identical to encode_stream in process "
+            f"(launches {launches})")
+        meta = json.loads(run("info", ajpgs[0]))
+        if meta["color_space"] != "YCoCg" or meta["blocks"] != list(BLOCKS):
+            raise AssertionError(f"cli info: {meta}")
+        run("decompress", *ajpgs, "-o", out)
+        for i, p in enumerate(paths):
+            dec = at.ImageData.load(os.path.join(
+                out, f"cli{i:02d}_decompressed.png"))
+            db = psnr_db(at.ImageData.load(p).data, dec.data)
+            log(f"  decompressed cli{i:02d}: {db:.3f} dB")
+            if db < 25.0:
+                raise AssertionError("cli decompress below 25 dB")
+        report = json.loads(run("preview", paths[0], "--color-space",
+                                "YCoCg", "--quality", *map(str, QUALITY),
+                                "--blocks", *map(str, BLOCKS)))
+        missing = [k for k in ("compression_ratio", "psnr", "ssim",
+                               "ms_ssim") if k not in report]
+        if missing:
+            raise AssertionError(f"cli preview lacks {missing}")
+        keys = ("compression_ratio", "psnr", "ssim", "ms_ssim", "lpips")
+        log(f"  preview: { {k: report[k] for k in keys} }")
+
+
+def harness_phase(big, card):
+    """Phase 12: the speed table, the visualizer and the normalization
+    constants on the card."""
+    import tempfile
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch import color
+    from aejpeg_tpu_torch.harness.normalization import derive_constants
+    from aejpeg_tpu_torch.harness.speed import format_table, run_speed_table
+    from aejpeg_tpu_torch.harness.visualize import visualize
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (path,) = _write_pngs(big[:1], tmp, "speed")
+        rows, launches = _launches_since_reset(lambda: run_speed_table(
+            path, iters=3, block_sizes=[4, 8, 16, 32]))
+        _require_launched("speed table", launches, ("u8_to_unit",))
+        log(f"  speed table, 1 x {H}x{W}, 3 iters ({card}; launches "
+            f"{launches}):")
+        for line in format_table(rows).splitlines():
+            log(f"    {line}")
+        vcfg = at.CodecConfig("YCoCg", QUALITY, (4, 64))
+        with contextlib.redirect_stdout(io.StringIO()):
+            gpu, launches = _launches_since_reset(lambda: visualize(
+                path, os.path.join(tmp, "vis_gpu"), vcfg))
+            cpu = visualize(path, os.path.join(tmp, "vis_cpu"), vcfg,
+                            device="cpu")
+        _require_launched("visualize", launches,
+                          ("histogram256", "clahe_apply_gather"))
+        leaves = {k: (gpu[k], cpu[k]) for k in gpu if k.endswith("_leaves")}
+        log(f"  visualize leaf counts card/CPU: {leaves}; launches "
+            f"{launches}")
+        if any(a != b for a, b in leaves.values()):
+            raise AssertionError("visualize leaf counts card != CPU")
+
+    t0 = time.perf_counter()
+    gpu = derive_constants()
+    t_gpu = time.perf_counter() - t0
+    cpu = derive_constants(spaces=["YCoCg"], device="cpu")["YCoCg"]
+    rel = max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+              for a, b in zip(gpu["YCoCg"], cpu))
+    log(f"  derive_constants: all {len(gpu)} spaces on the card in "
+        f"{t_gpu:.3f} s; YCoCg card vs CPU largest relative gap {rel:.3g}")
+    if rel > 1e-6:
+        raise AssertionError("derive_constants card vs CPU out of tolerance")
+    for space, (mid, scale) in gpu.items():
+        smid, sscale = color.normalization_constants(space)
+        log(f"    {space} against the shipped constants: midpoints within "
+            f"{float(np.max(np.abs(mid - smid))):.3g} (absolute), scales "
+            f"within {float(np.max(np.abs(scale - sscale) / sscale)):.3g} "
+            "(relative)")
 
 
 # each kernel's __global__ function, as torch.profiler names it
@@ -705,11 +989,22 @@ def main() -> int:
     log("[9] EvaluationMetrics, card against CPU")
     metrics_phase(big, card)
 
+    log(f"[10] batched metric sweep, {SWEEP_IMAGES} x {H}x{W} + 2 x "
+        f"{SMALL[0]}x{SMALL[1]} PNGs, {SWEEP_SPACES}")
+    sweep_launches = sweep_phase(big, small, card)
+
+    log("[11] CLI in subprocesses on the default device")
+    cli_phase(big, card)
+
+    log("[12] speed table, visualizer, normalization")
+    harness_phase(big, card)
+
     kernels = []
     for name, s in summary.items():
         src, rep = SOURCES[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
+                        "sweep_launches": sweep_launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "device_ms": s["device_ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
