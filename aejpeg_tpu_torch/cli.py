@@ -7,7 +7,9 @@
   aejpeg-torch compare    <results_dir>  # better-than-JPEG selection (anchors)
   aejpeg-torch analyze    <results_dir> --compression-file --quality-file [...]
   aejpeg-torch visualize  <in.png> -o outdir
+  aejpeg-torch bench      --images DIR  # throughput on the LIVE 512x768 BMPs
   aejpeg-torch info       <in.ajpg>     # container metadata
+  aejpeg-torch gui        [preview.png] # codec explorer window (Tk, display)
 
 (also `python -m aejpeg_tpu_torch.cli ...`).  The subcommands that run the
 codec take --device: cuda by default, which fails without a CUDA device;
@@ -185,6 +187,16 @@ def cmd_info(args):
         }, indent=2))
 
 
+def cmd_bench(args):
+    from .bench import report
+    report(args.images, args.device)
+
+
+def cmd_gui(args):
+    from .gui import main as gui_main
+    gui_main(args.preview, device=args.device)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="aejpeg-torch",
                                 description="Adaptive edge-aware JPEG "
@@ -257,6 +269,19 @@ def main(argv=None):
     i = sub.add_parser("info")
     i.add_argument("inputs", nargs="+")
     i.set_defaults(fn=cmd_info)
+
+    from .bench import add_images_arg
+    b = sub.add_parser("bench", help="encode/decode throughput of the "
+                                     "bench config (one JSON line)")
+    add_images_arg(b)
+    _add_device_arg(b)
+    b.set_defaults(fn=cmd_bench)
+
+    g = sub.add_parser("gui", help="launch the interactive codec explorer "
+                                   "(needs Tk and a display)")
+    g.add_argument("preview", nargs="?", default=None)
+    _add_device_arg(g)
+    g.set_defaults(fn=cmd_gui)
 
     args = p.parse_args(argv)
     if hasattr(args, "device"):

@@ -73,12 +73,17 @@ def _stage_d(tables, masks, spec: BatchSpec, consts, cfg: CodecConfig,
     return color.convert(cfg.color_space, "sRGB", torch.stack(ups, dim=-1))
 
 
-def parse_native_into_tables(payloads, spec: BatchSpec, tables, masks,
+def parse_native_into_tables(payloads, spec: BatchSpec, shards,
                              b: int) -> np.ndarray:
     """One batched C++ call: per (container, layer) replay the state
     stream, inflate the coefficient stream and scatter int16 rows into the
-    caller's dense host tables/masks.  Raises on malformed containers."""
+    caller's dense host tables/masks.  Raises on malformed containers.
+
+    shards: [(tables, masks)], one per shard of b // len(shards)
+    consecutive images, tables[gi][si] (b_loc * n_l, gh * gw, s * s) int16
+    and masks[gi][si] (b_loc * n_l, gh * gw) uint8."""
     n_tasks = 3 * b
+    b_loc = b // len(shards)
     st_ptrs = np.empty(n_tasks, np.uint64)
     bits_lens = np.empty(n_tasks, np.int64)
     root_sizes = np.empty(n_tasks, np.int32)
@@ -95,7 +100,8 @@ def parse_native_into_tables(payloads, spec: BatchSpec, tables, masks,
             payload = payloads[bi][li]
             gi, j = spec.layer_pos[li]
             g = spec.groups[gi]
-            plane = bi * g.n_l + j
+            tables, masks = shards[bi // b_loc]
+            plane = (bi % b_loc) * g.n_l + j
             sb = ctypes.c_char_p(payload.states_bytes)
             cb = ctypes.c_char_p(payload.compressed)
             keep.append((sb, cb))
@@ -136,25 +142,99 @@ def _scratch(key: str, n: int, dtype: torch.dtype, dev: torch.device
     return torch.from_numpy(native_entropy.scratch_view(key, (n,), np_dtype))
 
 
+def _section_shapes(spec: BatchSpec, b: int):
+    """[[(table shape, mask shape)] per size] per group, for b images."""
+    return [[((b * g.n_l, (g.ph // s) * (g.pw // s), s * s),
+              (b * g.n_l, (g.ph // s) * (g.pw // s))) for s in g.sizes]
+            for g in spec.groups]
+
+
+def _carve(flat, shapes, which: int):
+    """A flat arena -> [[view per size] per group] of shapes[..][which]."""
+    out, off = [], 0
+    for per in shapes:
+        views = []
+        for shp in per:
+            n = int(np.prod(shp[which]))
+            views.append(flat[off:off + n].reshape(shp[which]))
+            off += n
+        out.append(views)
+    return out
+
+
+def host_arenas(key: str, spec: BatchSpec, b: int, dev: torch.device):
+    """Host scratch for b images' tables and masks: (tables, masks) flat
+    tensors, one arena each (tables uninitialized, masks zeroed: 1 byte
+    per block), volatile until this thread asks for `key` again."""
+    shapes = _section_shapes(spec, b)
+    n_tbl = sum(int(np.prod(ts)) for per in shapes for ts, _ in per)
+    n_msk = sum(int(np.prod(ms)) for per in shapes for _, ms in per)
+    tbl = _scratch(f"{key}_tables", n_tbl, torch.int16, dev)
+    msk = _scratch(f"{key}_masks", n_msk, torch.uint8, dev)
+    msk.zero_()
+    return tbl, msk
+
+
+def parse_into_arenas(payloads, spec: BatchSpec, arenas, b: int) -> None:
+    """parse_native_into_tables into per-shard host arenas (host_arenas of
+    b // len(arenas) images each)."""
+    shapes = _section_shapes(spec, b // len(arenas))
+    parse_native_into_tables(
+        payloads, spec, [(_carve(t.numpy(), shapes, 0),
+                          _carve(m.numpy(), shapes, 1)) for t, m in arenas],
+        b)
+
+
+def _device_shard(tbl_host: torch.Tensor, msk_host: torch.Tensor,
+                  cfg: CodecConfig, shape, b: int, dev: torch.device,
+                  mark=None) -> torch.Tensor:
+    """Upload one shard's arenas to `dev` (blocking: the host scratch is
+    reused) and queue stage D: (b, H, W, 3) float32 sRGB on `dev`, possibly
+    still being computed.  mark(name, sync) records 'push'."""
+    spec = spec_for(cfg, shape)
+    shapes = _section_shapes(spec, b)
+    tables = _carve(tbl_host.to(dev), shapes, 0)
+    masks = _carve(msk_host.to(dev), shapes, 1)
+    if mark is not None:
+        mark("push", sync=True)
+    consts = device_tables(cfg, shape, None, dev)
+    return _stage_d(tables, masks, spec, consts, cfg, shape, b)
+
+
 def decode_batch(blobs: List[bytes],
                  timings: Optional[Dict[str, float]] = None,
-                 device=None) -> List[ImageData]:
+                 device=None, materialize: bool = True, mesh=None,
+                 data_axes=None):
     """Decode same-settings .ajpg blobs as one device pipeline; returns
     images in input order.
 
     device: None means CUDA (raises when CUDA is absent); pass "cpu" for
     the plain PyTorch path.  Stage timings: 'parse' (inflate + replay +
-    dense scatter, C++), 'push', 'device', 'pull'."""
-    dev = resolve_device(device)
+    dense scatter, C++), 'push', 'device', 'pull'.  materialize=False
+    returns the (B, H, W, 3) float32 device tensor and the metadata list
+    instead of host ImageData (no device->host image copy).
+
+    With `mesh` (parallel.make_mesh) instead of `device`, each shard of
+    whole images (over the mesh's `data_axes`, default every axis) is
+    parsed into its own host arenas and decoded on its device
+    (parallel/batch.py sharded_dense_decode_fn); 'device' then
+    includes the push, and materialize=False gathers the shards on the
+    mesh's first shard device.  len(blobs) must divide evenly."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass a device or a mesh, not both")
+    dev = resolve_device(device) if mesh is None else None
     if not blobs:
         return []
     require_native()
     marks = [time.perf_counter()]
+    devices = []
 
     def mark(name, sync=False):
         if timings is not None:
-            if sync and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            if sync:
+                for d in devices:
+                    if d.type == "cuda":
+                        torch.cuda.synchronize(d)
             marks.append(time.perf_counter())
             timings[name] = timings.get(name, 0.0) + marks[-1] - marks[-2]
 
@@ -173,48 +253,38 @@ def decode_batch(blobs: List[bytes],
     h, w = m0.height, m0.width
     b = len(blobs)
     spec = spec_for(cfg, (h, w))
-
-    # host tables from uninitialized grow-only scratch, one arena for all
-    # tables and one for all masks (masks zeroed: 1 byte per block)
-    shapes = [[((b * g.n_l, (g.ph // s) * (g.pw // s), s * s),
-                (b * g.n_l, (g.ph // s) * (g.pw // s))) for s in g.sizes]
-              for g in spec.groups]
-    n_tbl = sum(int(np.prod(ts)) for per in shapes for ts, _ in per)
-    n_msk = sum(int(np.prod(ms)) for per in shapes for _, ms in per)
-    tbl_host = _scratch("dec_tables", n_tbl, torch.int16, dev)
-    msk_host = _scratch("dec_masks", n_msk, torch.uint8, dev)
-    msk_host.zero_()
-    tbl_np, msk_np = tbl_host.numpy(), msk_host.numpy()
-
-    def carve(flat, which):
-        out, off = [], 0
-        for per in shapes:
-            views = []
-            for shp in per:
-                n = int(np.prod(shp[which]))
-                views.append(flat[off:off + n].reshape(shp[which]))
-                off += n
-            out.append(views)
-        return out
-
+    if mesh is None:
+        devices.append(dev)
+        shard_devs = [dev]
+    else:
+        from ..parallel.batch import sharded_dense_decode_fn
+        device_fn, shard_devs = sharded_dense_decode_fn(cfg, (h, w), b,
+                                                        mesh, data_axes)
+        devices.extend(set(shard_devs))
+    b_loc = b // len(shard_devs)
+    arenas = [host_arenas(f"dec_{k}", spec, b_loc, d)
+              for k, d in enumerate(shard_devs)]
     payloads = [[r.read_layer_raw() for _ in range(3)] for r in readers]
-    parse_native_into_tables(payloads, spec, carve(tbl_np, 0),
-                             carve(msk_np, 1), b)
+    parse_into_arenas(payloads, spec, arenas, b)
     mark("parse")
 
-    # blocking copies: the scratch is reused by this thread's next call
-    tables_dev = carve(tbl_host.to(dev), 0)
-    masks_dev = carve(msk_host.to(dev), 1)
-    mark("push", sync=True)
-
-    consts = device_tables(cfg, (h, w), None, dev)
-    out = _stage_d(tables_dev, masks_dev, spec, consts, cfg, (h, w), b)
-    mark("device", sync=True)
-    if dev.type == "cuda":
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        arr = host.copy_(out).numpy()
+    if mesh is None:
+        outs = [_device_shard(*arenas[0], cfg, (h, w), b, dev, mark)]
     else:
-        arr = out.numpy()
+        outs = device_fn(arenas)
+    mark("device", sync=True)
+    if not materialize:
+        return (outs[0] if len(outs) == 1 else
+                torch.cat([o.to(shard_devs[0]) for o in outs])), metas
+    if all(o.device.type == "cpu" for o in outs):
+        arr = (outs[0].numpy() if len(outs) == 1
+               else np.concatenate([o.numpy() for o in outs]))
+    else:
+        host = torch.empty((b, h, w, 3), dtype=torch.float32,
+                           pin_memory=True)
+        for k, o in enumerate(outs):
+            host[k * b_loc:(k + 1) * b_loc].copy_(o)
+        arr = host.numpy()
     mark("pull")
     return [ImageData(arr[i], (h, w, 3), metas[i].extension)
             for i in range(b)]

@@ -256,12 +256,17 @@ def _build_plans(cfg: CodecConfig, layer_shapes, levels_bits: np.ndarray,
     return plans
 
 
-def assemble_native(cfg: CodecConfig, spec: BatchSpec, plans, dense_np,
-                    slow_np, b: int):
+def assemble_native(cfg: CodecConfig, spec: BatchSpec, plans, shards,
+                    b: int):
     """Batched C++ stream assembly + entropy coding from the host dense
     tables: returns (arena, arena_offs, out_sizes); task t = (bi*3 + li)'s
-    payload is arena[arena_offs[t] : arena_offs[t] + out_sizes[t]]."""
+    payload is arena[arena_offs[t] : arena_offs[t] + out_sizes[t]].
+
+    shards: [(dense_np, slow_np)], one per shard of b // len(shards)
+    consecutive images, each holding its images' planes in _table_layout
+    order (one entry for the whole batch on a single device)."""
     n_tasks = 3 * b
+    b_loc = b // len(shards)
     lp_s = np.empty(n_tasks, np.uint64)
     lp_y = np.empty(n_tasks, np.uint64)
     lp_x = np.empty(n_tasks, np.uint64)
@@ -279,7 +284,8 @@ def assemble_native(cfg: CodecConfig, spec: BatchSpec, plans, dense_np,
             gi, j = spec.layer_pos[li]
             g = spec.groups[gi]
             plan = plans[bi][li]
-            plane = bi * g.n_l + j
+            dense_np, slow_np = shards[bi // b_loc]
+            plane = (bi % b_loc) * g.n_l + j
             ls = np.ascontiguousarray(plan.leaf_sizes, np.int32)
             ly = np.ascontiguousarray(plan.leaf_y, np.int32)
             lx = np.ascontiguousarray(plan.leaf_x, np.int32)
@@ -337,9 +343,51 @@ def _host_batch(images: Sequence[ImageData]) -> np.ndarray:
     return u8 if exact else np.stack([im.data for im in images])
 
 
+def level_band(cfg: CodecConfig) -> Optional[Tuple[int, int]]:
+    """(k_lo, k_hi): the pooled level band stage A packs (node sizes
+    2 * min .. max); None for a uniform grid."""
+    mn, mx = cfg.block_size_range
+    return None if mn == mx else (int(math.log2(mn)) + 1, int(math.log2(mx)))
+
+
+def _device_shard(host: np.ndarray, cfg: CodecConfig, shape, b: int,
+                  dev: torch.device, mark=None):
+    """Push `host` (b images, _host_batch's layout) to `dev`, run stage A,
+    pull its packed levels (waiting for stage A only) and queue stage B:
+    returns (levels (b, n) uint8 on the host, the flat stage-B tables on
+    `dev`, possibly still being computed).  mark(name, sync) records the
+    'push' and 'stage_a' times."""
+    spec = spec_for(cfg, shape)
+    tables = device_tables(cfg, shape, b, dev)
+    batch = torch.from_numpy(host).to(dev)
+    if mark is not None:
+        mark("push", sync=True)
+    group_planes, packed_bits = _stage_a(batch, cfg.color_space,
+                                         level_band(cfg), spec)
+    levels = packed_bits.cpu().numpy()
+    if mark is not None:
+        mark("stage_a")
+    return levels, _stage_b(group_planes, spec, tables, b)
+
+
+def carve_tables(flat, spec: BatchSpec, b: int):
+    """A flat table of b images (host array or device tensor) -> (dense,
+    slow), views per (group, size) in _table_layout order (slow entries
+    None where a layer tiles evenly)."""
+    dense = [[None] * len(g.sizes) for g in spec.groups]
+    slow = [[None] * len(g.sizes) for g in spec.groups]
+    off = 0
+    for gi, si, kind, shape in _table_layout(spec, b):
+        n = int(np.prod(shape))
+        (dense if kind == "dense" else slow)[gi][si] = \
+            flat[off:off + n].reshape(shape)
+        off += n
+    return dense, slow
+
+
 def encode_batch(images: Sequence[ImageData], config: CodecConfig,
                  timings: Optional[Dict[str, float]] = None,
-                 device=None) -> List[bytes]:
+                 device=None, mesh=None, data_axes=None) -> List[bytes]:
     """Encode same-shape images as one device pipeline; returns .ajpg blobs
     in input order.
 
@@ -348,59 +396,67 @@ def encode_batch(images: Sequence[ImageData], config: CodecConfig,
     'push' (host->device upload), 'stage_a' (device stage A up to the
     packed levels on the host), 'plans' (host quadtree planning, overlapped
     with device stage B), 'device' (residual stage B wait), 'pull' (tables
-    to the host), 'assemble' (C++ stream assembly + deflate)."""
-    dev = resolve_device(device)
+    to the host), 'assemble' (C++ stream assembly + deflate).
+
+    With `mesh` (parallel.make_mesh) instead of `device`, the push and the
+    device stages run data-parallel over the mesh's `data_axes` (default:
+    every axis), whole images per shard on the shard's device
+    (parallel/batch.py sharded_dense_device_fn); 'stage_a' then includes
+    the push.  len(images) must divide evenly.  The containers
+    are byte-identical to the single-device path's."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass a device or a mesh, not both")
+    dev = resolve_device(device) if mesh is None else None
     cfg = config
     if not images:
         return []
     require_native()
-    marks = [time.perf_counter()]
-
-    def mark(name, sync=False):
-        if timings is not None:
-            if sync and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            marks.append(time.perf_counter())
-            timings[name] = timings.get(name, 0.0) + marks[-1] - marks[-2]
-
     h, w = images[0].original_shape[:2]
     for im in images:
         if im.original_shape[:2] != (h, w):
             raise ValueError("encode_batch requires same-shape images; "
                              "group by shape upstream")
     b = len(images)
+    if mesh is not None:
+        from ..parallel.batch import sharded_dense_device_fn
+        device_fn = sharded_dense_device_fn(cfg, (h, w), b, mesh, data_axes)
+    marks = [time.perf_counter()]
+    devices = []
+
+    def mark(name, sync=False):
+        if timings is not None:
+            if sync:
+                for d in devices:
+                    if d.type == "cuda":
+                        torch.cuda.synchronize(d)
+            marks.append(time.perf_counter())
+            timings[name] = timings.get(name, 0.0) + marks[-1] - marks[-2]
+
     layer_shapes = cfg.layer_shapes((h, w))
-    mn, mx = cfg.block_size_range
-    band = (None if mn == mx
-            else (int(math.log2(mn)) + 1, int(math.log2(mx))))
     spec = spec_for(cfg, (h, w))
-    tables = device_tables(cfg, (h, w), b, dev)
-
-    batch = torch.from_numpy(_host_batch(images)).to(dev)
-    mark("push", sync=True)
-
-    group_planes, packed_bits = _stage_a(batch, cfg.color_space, band, spec)
-    levels_bits = packed_bits.cpu().numpy()     # waits for stage A only
-    mark("stage_a")
-    # stage B has no plan dependence: queue it, then plan on the host
-    flat_tables = _stage_b(group_planes, spec, tables, b)
-    plans = _build_plans(cfg, layer_shapes, levels_bits, band, b)
+    host_batch = _host_batch(images)
+    if mesh is None:
+        devices.append(dev)
+        levels, flat = _device_shard(host_batch, cfg, (h, w), b, dev, mark)
+        levels, flats = [levels], [flat]
+    else:
+        levels, flats = device_fn(host_batch)
+        devices.extend({t.device for t in flats})
+        mark("stage_a")
+    # stage B has no plan dependence: it runs while the host plans
+    plans = _build_plans(cfg, layer_shapes, np.concatenate(levels),
+                         level_band(cfg), b)
     mark("plans")
     mark("device", sync=True)
 
-    host = to_host(flat_tables, "enc_tables")
-    dense_np = [[None] * len(g.sizes) for g in spec.groups]
-    slow_np = [[None] * len(g.sizes) for g in spec.groups]
-    off = 0
-    for gi, si, kind, shape in _table_layout(spec, b):
-        n = int(np.prod(shape))
-        arr = host[off:off + n].reshape(shape)
-        (dense_np if kind == "dense" else slow_np)[gi][si] = arr
-        off += n
+    b_loc = b // len(flats)
+    shards = [carve_tables(to_host(t, f"enc_tables_{k}"), spec, b_loc)
+              for k, t in enumerate(flats)]
     mark("pull")
 
-    arena, arena_offs, out_sizes = assemble_native(cfg, spec, plans,
-                                                   dense_np, slow_np, b)
+    arena, arena_offs, out_sizes = assemble_native(cfg, spec, plans, shards,
+                                                   b)
+    mn, mx = cfg.block_size_range
     out = []
     for bi in range(b):
         writer = ContainerWriter(ContainerMetadata(

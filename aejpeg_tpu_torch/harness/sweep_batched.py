@@ -90,20 +90,6 @@ def _combo_geometry(cfg: CodecConfig, shape: Tuple[int, int], b: int,
     return spec, device_tables(cfg, shape, b, device)
 
 
-def _carve(flat: torch.Tensor, spec: BatchSpec, b: int):
-    """Stage B's flat output -> dense[gi][si], slow[gi][si] views (slow
-    None where the layer tiles evenly)."""
-    dense = [[None] * len(g.sizes) for g in spec.groups]
-    slow = [[None] * len(g.sizes) for g in spec.groups]
-    off = 0
-    for gi, si, kind, shp in be._table_layout(spec, b):
-        n = int(np.prod(shp))
-        (dense if kind == "dense" else slow)[gi][si] = \
-            flat[off:off + n].reshape(shp)
-        off += n
-    return dense, slow
-
-
 def _split(flat, shapes):
     """A flat array or tensor -> [[view of shape shapes[gi][si]]]."""
     out, off = [], 0
@@ -172,9 +158,8 @@ def _assemble_blobs(cfg: CodecConfig, spec: BatchSpec, plans, flat_host,
     batch assembly and container writer)."""
     b = len(plans)
     h, w = shape
-    dense_np, slow_np = _carve(flat_host, spec, b)
-    arena, arena_offs, out_sizes = be.assemble_native(cfg, spec, plans,
-                                                      dense_np, slow_np, b)
+    arena, arena_offs, out_sizes = be.assemble_native(
+        cfg, spec, plans, [be.carve_tables(flat_host, spec, b)], b)
     mn, mx = cfg.block_size_range
     blobs = []
     for bi in range(b):
@@ -399,7 +384,7 @@ class BatchedMetricsSweep:
                                 packed_band=WIDE_BAND)
         t0 = self._mark("plans", t0)
 
-        dense, slow = _carve(flat, spec, b)
+        dense, slow = be.carve_tables(flat, spec, b)
         masks = _leaf_masks(plans, spec, b, self.device)
         recon = _reconstruct(cfg, spec, tables, dense, slow, masks, shape, b)
         t0 = self._mark("stage_d", t0)

@@ -1,6 +1,9 @@
-"""The uniform-grid device encode step (the multi-GPU batch steps are not
-ported yet)."""
+"""Data parallelism over cards and processes: meshes, the sharded batch
+steps, the uniform-grid device step (multihost.py: one process per host)."""
 
-from .batch import device_encode_uniform
+from .mesh import make_mesh
+from .batch import (device_encode_uniform, sharded_dense_device_fn,
+                    sharded_dense_decode_fn)
 
-__all__ = ["device_encode_uniform"]
+__all__ = ["make_mesh", "device_encode_uniform",
+           "sharded_dense_device_fn", "sharded_dense_decode_fn"]

@@ -1,16 +1,27 @@
-"""The device encode step for a uniform block grid.
+"""The uniform-grid device encode step and the data-parallel batch steps.
 
-Counterpart of the single-device part of the JAX package's
-parallel/batch.py.  `device_encode_uniform` runs the whole device side of
-encode for one image when block_size_min == max: color convert, chroma
-downsample, the Canny edge stack, normalization, Morton-ordered block
-extraction, DCT, quantization and zigzag.  A uniform grid's Morton order is
-the container's preorder, so its coefficient rows are the container's
-coefficient stream.
+Counterpart of the JAX package's parallel/batch.py.
+`device_encode_uniform` runs the whole device side of encode for one image
+when block_size_min == max: color convert, chroma downsample, the Canny
+edge stack, normalization, Morton-ordered block extraction, DCT,
+quantization and zigzag.  A uniform grid's Morton order is the container's
+preorder, so its coefficient rows are the container's coefficient stream.
+
+`sharded_dense_device_fn` / `sharded_dense_decode_fn` split the batched
+codec's device stages over a mesh's data axes, whole images per shard.
+The caller's thread dispatches the shards in turn, each on its own device:
+the host waits inside a shard (the Canny hysteresis syncs about 22 times
+a batch) wait for that shard's device only, while the shards before it
+keep running.  One host thread per shard was measured 1.9-6.8x slower on
+H100s: eager dispatch from several threads hands the GIL over at every op
+(tools/mesh_scaling.py).  The dense tables are plane-major (plane =
+bi * n_l + j), so shard k's tables are the single-device tables' rows of
+its images, and the containers and decodes are the single-device path's.
 """
 
 import functools
-from typing import Tuple
+from contextlib import nullcontext
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +32,7 @@ from ..codec.quadtree import _interleave_bits
 from ..config import CodecConfig
 from ..ops import dct, quant, zigzag
 from ..utils.mathutils import root_size_for
+from .mesh import shard_devices
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,3 +95,65 @@ def device_encode_uniform(rgb, space: str, block: int = 8,
             dct.dct2(_extract_uniform_blocks(norm, block)), hi, lo)
         out["coeffs"].append(zigzag.zigzag_gather(levels))
     return out
+
+
+# ------------------------------------------------------- data parallelism
+
+
+def _split(b: int, mesh, data_axes) -> Tuple[List[torch.device], int]:
+    devs = shard_devices(mesh, data_axes)
+    if b % len(devs):
+        raise ValueError(f"batch {b} not divisible by {len(devs)} devices")
+    return devs, b // len(devs)
+
+
+def run_shards(fn: Callable, devices: Sequence[torch.device]) -> list:
+    """[fn(k, devices[k])], called in shard order from this thread with
+    each shard's device current."""
+    out = []
+    for k, dev in enumerate(devices):
+        with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
+            out.append(fn(k, dev))
+    return out
+
+
+def sharded_dense_device_fn(cfg: CodecConfig, shape: Tuple[int, int],
+                            b: int, mesh, data_axes=None):
+    """The batched encoder's device side (push, stage A and stage B of
+    codec/batch_encode.py) split over the mesh's data axes (default: every
+    axis); b must divide evenly.
+
+    Returns fn(host_batch (B, H, W, 3) uint8 or float32 numpy) ->
+    (per-shard packed levels (B_loc, n) uint8 numpy, per-shard flat stage-B
+    tables on the shard's device, possibly still being computed), shards
+    in bi-major order."""
+    from ..codec import batch_encode as be
+    devs, b_loc = _split(b, mesh, data_axes)
+
+    def fn(host_batch: np.ndarray):
+        def shard(k, dev):
+            return be._device_shard(host_batch[k * b_loc:(k + 1) * b_loc],
+                                    cfg, shape, b_loc, dev)
+        outs = run_shards(shard, devs)
+        return [o[0] for o in outs], [o[1] for o in outs]
+    return fn
+
+
+def sharded_dense_decode_fn(cfg: CodecConfig, shape: Tuple[int, int],
+                            b: int, mesh, data_axes=None):
+    """The batched decoder's device side (upload and stage D of
+    codec/batch_decode.py) split over the mesh's data axes, the decode
+    mirror of `sharded_dense_device_fn`.
+
+    Returns (fn, shard devices): fn(arenas) takes per-shard (tables, masks)
+    host arenas (batch_decode.host_arenas of B_loc images, parsed) and
+    returns per-shard (B_loc, H, W, 3) float32 sRGB tensors on the shards'
+    devices, possibly still being computed."""
+    from ..codec import batch_decode as bd
+    devs, b_loc = _split(b, mesh, data_axes)
+
+    def fn(arenas):
+        def shard(k, dev):
+            return bd._device_shard(*arenas[k], cfg, shape, b_loc, dev)
+        return run_shards(shard, devs)
+    return fn, devs

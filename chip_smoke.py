@@ -56,9 +56,27 @@ Phases, each fatal on failure:
      encode_stream in process), info, decompress (>= 25 dB), preview;
  12. the speed table, the quadtree visualizer (leaf counts card == CPU) and
      the normalization constants (YCoCg card vs CPU within 1e-6 relative;
-     all seven spaces against the shipped constants).
+     all seven spaces against the shipped constants);
+ 13. the mesh: encode_batch / decode_batch with mesh= over a (2, 1) mesh
+     naming cuda:0 twice (and, with several cards, over 2, 4, ... of them),
+     on phase 3's images: containers byte-identical to the single-device
+     path's and decodes within 3e-6 of it (the JAX package's bound), 41
+     images refused, encode/decode Mpix/s of mesh and single device (median
+     of 3), every kernel launched;
+ 14. multihost: two ranks in subprocesses rendezvous over gloo on
+     localhost, each runs encode_stream_sharded then decode_stream_sharded
+     on its half of 12 x 512x768 on the card: the union of containers
+     byte-identical to encode_stream in process, decodes within 1e-5 of
+     decode_stream;
+ 15. `python -m aejpeg_tpu_torch.cli bench` in a subprocess on 14 512x768
+     BMPs written by the port's I/O: its JSON line parsed, value > 0, PSNR
+     > 25 dB, its stage lines echoed;
+ 16. the GUI's jobs without Tk: the preview job (ratio > 1, > 25 dB), the
+     compress job (sibling .ajpg files byte-identical to encode_batch) and
+     the decompress job (images written back, > 25 dB).
 
-Prints the kernels as one JSON line, the card's name and power limit, and
+Prints the kernels as one JSON line (with their launches in phase 3, in
+the sweep and on the mesh), the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Exits non-zero without that line when
 CUDA is unavailable or any phase fails.
 """
@@ -83,6 +101,10 @@ REPS = 25                 # kernel timing repetitions
 BATCH_REPS = 5            # warm batches timed in phase 5
 SPACE_BATCH = 8           # images per colour space in phase 7
 SPACE_REPS = 3            # warm batches timed per space in phase 7
+MESH_REPS = 3             # warm batches timed per path in phase 13
+MH_IMAGES = 12            # images split over the two ranks of phase 14
+BENCH_DISTINCT = 14       # BMPs the bench of phase 15 reads (x3 replicated)
+GUI_IMAGES = 4            # images through the GUI's compress job
 CODEC_IMAGES = 4          # images through the per-image Codec in phase 8
 SWEEP_IMAGES = 16         # 512x768 images of the phase-10 sweep
 SWEEP_SPACES = ("YCbCr", "ICtCp")
@@ -916,6 +938,265 @@ def harness_phase(big, card):
             "(relative)")
 
 
+# --------------------------------------------------------------- phases 13-16
+
+
+def mesh_phase(cfg, big, small, card):
+    """Phase 13: encode_batch / decode_batch over meshes against the
+    single-device path on the same card; returns the launch counts of the
+    first mesh's run."""
+    import torch
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch.parallel import make_mesh
+    meshes = [("(2, 1) mesh of cuda:0 twice",
+               make_mesh((2, 1), devices=["cuda:0"] * 2))]
+    n = 2
+    while n <= torch.cuda.device_count():
+        meshes.append((f"mesh over {n} cards", make_mesh(
+            devices=[f"cuda:{i}" for i in range(n)])))
+        n *= 2
+    first = None
+    for label, mesh in meshes:
+        imgs = big[:len(big) - len(big) % mesh.size]
+        pair = small if len(small) % mesh.size == 0 else []
+        # single-device references, outside the counted mesh run
+        want = at.encode_batch(imgs, cfg)
+        want_pair = at.encode_batch(pair, cfg) if pair else []
+        want_dec = at.decode_batch(want) + (at.decode_batch(want_pair)
+                                            if pair else [])
+
+        def run():
+            blobs = at.encode_batch(imgs, cfg, mesh=mesh)
+            dec = at.decode_batch(blobs, mesh=mesh)
+            if pair:
+                blobs += at.encode_batch(pair, cfg, mesh=mesh)
+                dec += at.decode_batch(blobs[len(imgs):], mesh=mesh)
+            return blobs, dec
+        (blobs, dec), launches = _launches_since_reset(run)
+        if blobs != want + want_pair:
+            raise AssertionError(f"{label}: containers differ from the "
+                                 "single-device path's")
+        err = max(float(np.abs(x.data - y.data).max())
+                  for x, y in zip(dec, want_dec))
+        log(f"  {label}: {len(imgs)} x {H}x{W}"
+            + (f" + {len(pair)} x {SMALL[0]}x{SMALL[1]}" if pair else "")
+            + f", containers byte-identical to the single-device path's; "
+            f"decode max abs vs single device {err!r}; launches {launches}")
+        if err > 3e-6:
+            raise AssertionError(f"{label}: decode differs by {err}")
+        if first is None:
+            _require_launched(label, launches, launches)
+            first = launches
+        for what, call in (
+                ("encode_batch", lambda: at.encode_batch(imgs[:-1], cfg,
+                                                         mesh=mesh)),
+                ("decode_batch", lambda: at.decode_batch(want[:-1],
+                                                         mesh=mesh))):
+            try:
+                call()
+            except ValueError as e:
+                log(f"  {what} of {len(imgs) - 1} images: ValueError ({e})")
+            else:
+                raise AssertionError(f"{what} accepted {len(imgs) - 1} "
+                                     f"images on {mesh.size} shards")
+        mpix = len(imgs) * H * W / 1e6
+        rates = {k: [] for k in ("single encode", "mesh encode",
+                                 "single decode", "mesh decode")}
+        for _ in range(MESH_REPS):
+            for k, call in (
+                    ("single encode", lambda: at.encode_batch(imgs, cfg)),
+                    ("mesh encode", lambda: at.encode_batch(imgs, cfg,
+                                                            mesh=mesh)),
+                    ("single decode", lambda: at.decode_batch(want)),
+                    ("mesh decode", lambda: at.decode_batch(want,
+                                                            mesh=mesh))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                rates[k].append(time.perf_counter() - t0)
+        log(f"  {label}, median of {MESH_REPS} warm batches ({card}): "
+            + ", ".join(f"{k} {mpix / statistics.median(v):.3f} Mpix/s "
+                        f"({statistics.median(v) * 1e3:.3f} ms)"
+                        for k, v in rates.items()))
+    return first
+
+
+_MH_WORKER = r"""
+import pickle, sys, time
+sys.path.insert(0, %(root)r)
+import torch.distributed as dist
+from chip_smoke import synth_images, H, W, MH_IMAGES, QUALITY, BLOCKS
+from aejpeg_tpu_torch import CodecConfig
+from aejpeg_tpu_torch.parallel import multihost as mh
+t0 = time.perf_counter()
+mh.initialize(%(coord)r, 2, %(rank)d)
+images = synth_images(MH_IMAGES, H, W, seed=3)
+cfg = CodecConfig("YCoCg", QUALITY, BLOCKS, entropy_level=-1)
+t1 = time.perf_counter()
+idxs, blobs = mh.encode_stream_sharded(images, cfg)
+t2 = time.perf_counter()
+parts = [None, None]
+dist.all_gather_object(parts, (idxs, blobs))
+merged = dict(kv for p in parts for kv in zip(*p))
+t3 = time.perf_counter()
+didxs, decoded = mh.decode_stream_sharded([merged[i] for i in
+                                           range(MH_IMAGES)])
+t4 = time.perf_counter()
+with open(%(out)r, "wb") as f:
+    pickle.dump({"rank": dist.get_rank(), "world": dist.get_world_size(),
+                 "idxs": idxs, "blobs": blobs, "didxs": didxs,
+                 "decoded": [im.data for im in decoded],
+                 "s": {"start": t1 - t0, "encode": t2 - t1,
+                       "decode": t4 - t3}}, f)
+dist.destroy_process_group()
+"""
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_phase(card):
+    """Phase 14: two gloo ranks in subprocesses against the in-process
+    streams."""
+    import pickle
+    import tempfile
+    import aejpeg_tpu_torch as at
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        coord = f"127.0.0.1:{_free_port()}"
+        outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _MH_WORKER % {
+                "root": root, "coord": coord, "rank": r, "out": outs[r]}],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            for r in range(2)]
+        try:
+            for r, p in enumerate(procs):
+                _, err = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    raise AssertionError(
+                        f"rank {r} exited {p.returncode}: "
+                        f"{err.decode(errors='replace')[-2000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        wall = time.perf_counter() - t0
+        res = []
+        for path in outs:
+            with open(path, "rb") as f:
+                res.append(pickle.load(f))
+    images = synth_images(MH_IMAGES, H, W, seed=3)
+    cfg = at.CodecConfig("YCoCg", QUALITY, BLOCKS, entropy_level=-1)
+    want = at.encode_stream(images, cfg)
+    want_dec = at.decode_stream(want)
+    union, dec = {}, {}
+    for r in res:
+        union.update(zip(r["idxs"], r["blobs"]))
+        dec.update(zip(r["didxs"], r["decoded"]))
+        log(f"  rank {r['rank']} of {r['world']}: images {r['idxs']}, "
+            f"rendezvous {r['s']['start']:.3f} s, encode_stream_sharded "
+            f"{r['s']['encode']:.3f} s, decode_stream_sharded "
+            f"{r['s']['decode']:.3f} s (first calls: include warm-up)")
+    if sorted(union) != list(range(MH_IMAGES)) or \
+            [union[i] for i in range(MH_IMAGES)] != want:
+        raise AssertionError("the ranks' containers differ from "
+                             "encode_stream in process")
+    err = max(float(np.abs(dec[i] - want_dec[i].data).max())
+              for i in range(MH_IMAGES))
+    log(f"  union of {MH_IMAGES} containers byte-identical to encode_stream;"
+        f" decodes max abs vs decode_stream {err!r}; two ranks' wall "
+        f"{wall:.3f} s from spawn to exit ({card})")
+    if err > 1e-5:
+        raise AssertionError("multihost decodes out of tolerance")
+
+
+def bench_phase(big, card):
+    """Phase 15: the CLI's bench subcommand in a subprocess."""
+    import re
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, im in enumerate(big[:BENCH_DISTINCT]):
+            im.save(os.path.join(tmp, f"live{i:02d}.bmp"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "aejpeg_tpu_torch.cli", "bench",
+             "--images", tmp], cwd=root, capture_output=True, text=True,
+            timeout=600, env=dict(os.environ, PYTHONPATH=root))
+        wall = time.perf_counter() - t0
+    for line in res.stderr.strip().splitlines():
+        log(f"    {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"bench exited {res.returncode}")
+    out = res.stdout.strip().splitlines()
+    line = json.loads(out[-1])
+    log(f"  bench ({wall:.3f} s in its process, {card}): {out[-1]}")
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} \
+            or not line["value"] > 0:
+        raise AssertionError(f"bench line malformed: {line}")
+    db = float(re.search(r"PSNR ([0-9.]+) dB", line["metric"]).group(1))
+    if db <= 25.0:
+        raise AssertionError(f"bench PSNR {db} dB <= 25 dB")
+
+
+def gui_phase(big, card):
+    """Phase 16: the GUI's jobs on the card through a stub app (no Tk)."""
+    import tempfile
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch.gui.app import AejpegApp
+    from aejpeg_tpu_torch.gui.control_panel import PanelState
+
+    class Stub:
+        state = PanelState(quality=QUALITY, block_exponents=(2, 7))
+        device = None
+        codec = at.Codec(state.to_config())
+
+    cfg = Stub.state.to_config()
+    (out, ratio), launches = _launches_since_reset(
+        lambda: AejpegApp._process_preview(Stub, big[0]))
+    db = psnr_db(big[0].data, out.data)
+    log(f"  preview job: ratio {ratio:.3f}, {db:.3f} dB; launches "
+        f"{launches}")
+    if ratio <= 1.0 or db <= 25.0:
+        raise AssertionError("preview job out of bounds")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _write_pngs(big[:GUI_IMAGES], tmp, "gui")
+        errors, launches = _launches_since_reset(
+            lambda: AejpegApp._compress_job(Stub, paths))
+        if errors:
+            raise AssertionError(f"compress job: {errors}")
+        _require_launched("compress job", launches,
+                          ("u8_to_unit", "histogram256",
+                           "clahe_apply_gather"))
+        want = at.encode_batch([at.ImageData.load(p) for p in paths], cfg)
+        ajpgs = [os.path.splitext(p)[0] + ".ajpg" for p in paths]
+        for path, blob in zip(ajpgs, want):
+            with open(path, "rb") as f:
+                if f.read() != blob:
+                    raise AssertionError(f"{path} differs from encode_batch")
+        log(f"  compress job: {len(ajpgs)} .ajpg byte-identical to "
+            f"encode_batch; launches {launches}")
+        for p in paths:
+            os.remove(p)
+        errors = AejpegApp._decompress_job(Stub, ajpgs)
+        if errors:
+            raise AssertionError(f"decompress job: {errors}")
+        dbs = [psnr_db(im.data, at.ImageData.load(p).data)
+               for im, p in zip(big, paths)]
+        log(f"  decompress job: {len(paths)} images written back, "
+            f"{min(dbs):.3f}-{max(dbs):.3f} dB ({card})")
+        if min(dbs) <= 25.0:
+            raise AssertionError("decompress job below 25 dB")
+
+
 # each kernel's __global__ function, as torch.profiler names it
 KERNEL_NAMES = {"histogram256": "hist256_kernel",
                 "clahe_apply_gather": "clahe_gather_kernel",
@@ -999,12 +1280,26 @@ def main() -> int:
     log("[12] speed table, visualizer, normalization")
     harness_phase(big, card)
 
+    log(f"[13] mesh: encode_batch / decode_batch with mesh=, {BATCH} x "
+        f"{H}x{W} + 2 x {SMALL[0]}x{SMALL[1]}")
+    mesh_launches = mesh_phase(cfg, big, small, card)
+
+    log(f"[14] multihost: two gloo ranks, {MH_IMAGES} x {H}x{W}")
+    multihost_phase(card)
+
+    log(f"[15] bench subcommand on {BENCH_DISTINCT} {H}x{W} BMPs")
+    bench_phase(big, card)
+
+    log("[16] GUI jobs without Tk")
+    gui_phase(big, card)
+
     kernels = []
     for name, s in summary.items():
         src, rep = SOURCES[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
                         "sweep_launches": sweep_launches[name],
+                        "mesh_launches": mesh_launches[name],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "device_ms": s["device_ms"],
                         "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
