@@ -22,11 +22,12 @@ import torch
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     """round_f32(a*b + c) with a*b unrounded; a, b, c float32 (b and c
-    may be 0-dim)."""
-    b = torch.as_tensor(b, dtype=torch.float32, device=a.device)
-    c = torch.as_tensor(c, dtype=torch.float32, device=a.device)
-    return (a.to(torch.float64) * b.to(torch.float64)
-            + c.to(torch.float64)).to(torch.float32)
+    may be 0-dim, or scalars equal to float32 values, which stay on the
+    host)."""
+    def f64(x):
+        return (x.to(torch.float64) if isinstance(x, torch.Tensor)
+                else float(x))
+    return (a.to(torch.float64) * f64(b) + f64(c)).to(torch.float32)
 
 
 def divide(x: torch.Tensor, d: float) -> torch.Tensor:

@@ -33,7 +33,9 @@ Phases, each fatal on failure:
   7. each of the seven colour spaces through encode_batch -> decode_batch
      on 8 x 512x768 on the card (PSNR > 25 dB, encode/decode Mpix/s, the
      kernels it launched), then the card against the CPU on one image per
-     space under phase 4's tolerances;
+     space under phase 4's tolerances; on float inputs, every space's
+     conversion both ways on 1 M pixels and encode_batch of 2 x 512x768
+     per space, card bitwise (byte-identical) to the CPU;
   8. the per-image Codec on the card, 4 x 512x768, YCoCg q20-80 blocks
      4-128 and YCbCr 8x8: containers payload-identical to encode_batch's on
      the card, decodes within 1e-5 of decode_batch's, mean per-image
@@ -113,6 +115,7 @@ REPS = 25                 # kernel timing repetitions
 BATCH_REPS = 5            # warm batches timed in phase 5
 SPACE_BATCH = 8           # images per colour space in phase 7
 SPACE_REPS = 3            # warm batches timed per space in phase 7
+FLOAT_PIXELS = 1_000_000  # float pixels per space, card vs CPU, in phase 7
 MESH_REPS = 3             # warm batches timed per path in phase 13
 MH_IMAGES = 12            # images split over the two ranks of phase 14
 BENCH_DISTINCT = 14       # BMPs the bench of phase 15 reads (x3 replicated)
@@ -608,6 +611,52 @@ def color_spaces(big, card):
             f"{SPACE_REPS} warm {len(imgs)}-image batches ({card}); "
             f"launches {launches}")
         card_vs_cpu(cfg, imgs[:1], singles=False)
+    float_colors(big)
+
+
+def float_colors(big):
+    """Phase 7, float inputs: every space's conversion both ways on
+    FLOAT_PIXELS random float pixels, and encode_batch of two float-input
+    images per space, on the card: bitwise (byte-identical) to the CPU,
+    which tests/test_torch_color.py holds to the JAX package."""
+    import torch
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch import color
+    from aejpeg_tpu_torch.codec.batch_encode import _host_batch
+    rng = np.random.default_rng(3)
+    px = torch.from_numpy(rng.random((FLOAT_PIXELS, 3), dtype=np.float32))
+    for space in color.REGISTRY:
+        fwd = color.convert("sRGB", space, px)
+        t0 = time.perf_counter()
+        fwd_card = color.convert("sRGB", space, px.cuda())
+        back_card = color.convert(space, "sRGB", fwd.cuda())
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        back = color.convert(space, "sRGB", fwd)
+        for what, a, b in (("forward", fwd_card, fwd),
+                           ("inverse", back_card, back)):
+            a = a.cpu()
+            same = (a.view(torch.int32) == b.view(torch.int32)).all(-1)
+            if not bool(same.all()):
+                raise AssertionError(
+                    f"{space} {what}: {int((~same).sum())} of "
+                    f"{FLOAT_PIXELS} float pixels differ card vs CPU")
+        log(f"  {space}: forward and inverse on {FLOAT_PIXELS} float pixels "
+            f"bitwise card == CPU (card {t * 1e3:.3f} ms both ways, cold)")
+    noisy = [np.clip(im.data + rng.normal(0, 1e-3, im.data.shape), 0, 1)
+             .astype(np.float32) for im in big[:2]]
+    imgs = [at.ImageData.from_array(a, extension=".png") for a in noisy]
+    if _host_batch(imgs).dtype == np.uint8:
+        raise AssertionError("float images took the u8 upload path")
+    for space in color.get_color_spaces():
+        cfg = at.CodecConfig(space, QUALITY, BLOCKS, entropy_level=-1)
+        gpu = at.encode_batch(imgs, cfg)
+        cpu = at.encode_batch(imgs, cfg, device="cpu")
+        if gpu != cpu:
+            raise AssertionError(f"{space}: float-input containers differ "
+                                 "card vs CPU")
+        log(f"  {space}: 2 float-input {H}x{W} containers byte-identical "
+            "card == CPU")
 
 
 def _same_payloads(a: bytes, b: bytes) -> bool:

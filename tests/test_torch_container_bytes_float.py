@@ -1,23 +1,20 @@
 """The port's encode_batch against the JAX package's, byte for byte, on the
 CPU, on float inputs off the u8 lattice (the float32 upload path) at
-128x192 with blocks 4-128, in six colour spaces
-(test_torch_container_bytes.py says how the cases are split).
+128x192 with blocks 4-128, in all seven colour spaces
+(test_torch_container_bytes.py says how the cases are split;
+test_torch_container_bytes_float_200x300.py holds a second shape).
 
-The three linear spaces match by construction (the same FMAs).  The
-non-linear ones differ from XLA's in the last bits on a few percent of
-pixels, on u8 inputs as on float ones (torch's `x ** 2.4` in
-srgb_to_linear against XLA's pow; the port's float64 PQ), so their
-containers match only while no such difference flips a quantized level.
-On these inputs one of ICtCp's coefficients flips: ICtCp is left out here
-and stands as a fault in ROADMAP.md Queue 3."""
+The colour conversions give the JAX package's bits on every input
+(tests/test_torch_color.py), so the non-linear spaces match here as the
+linear ones do."""
 
 import pytest
 
-from test_torch_container_bytes import check_batch_matches_jax, float_arrays
+from test_torch_container_bytes import (SPACES, check_batch_matches_jax,
+                                        float_arrays)
 
 
-@pytest.mark.parametrize("space", ["ICaCb", "JzAzBz", "OKLAB", "YCbCr",
-                                   "YCoCg", "YCoCg-R"])
+@pytest.mark.parametrize("space", SPACES)
 def test_bytes_float_128x192(space):
     check_batch_matches_jax(space, (4, 128), float_arrays(128, 192, 2, 6),
                             u8=False)
