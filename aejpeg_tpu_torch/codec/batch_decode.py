@@ -70,7 +70,8 @@ def _stage_d(tables, masks, spec: BatchSpec, consts, cfg: CodecConfig,
         layer = divide(canvases[gi][:, j, :lh, :lw], float(scales[li])) \
             + float(mids[li])
         ups.append(resize.resize2d(layer, (h, w), "linear"))
-    return color.convert(cfg.color_space, "sRGB", torch.stack(ups, dim=-1))
+    return color.convert(cfg.color_space, "sRGB", torch.stack(ups, dim=-1),
+                         tiny=False)           # decoded planes
 
 
 def parse_native_into_tables(payloads, spec: BatchSpec, shards,

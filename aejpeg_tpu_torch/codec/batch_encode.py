@@ -77,10 +77,13 @@ def _stage_a(batch: torch.Tensor, space: str,
     level_band = (k_lo, k_hi): pooled has-edge masks for node sizes 2**k
     up to each layer's root (packed_levels), BIT-PACKED (one uint8 row per
     image, MSB first); None (uniform grids) skips the Canny stack."""
-    if batch.dtype == torch.uint8:
+    u8 = batch.dtype == torch.uint8
+    if u8:
         batch = kernels.u8_to_unit(batch)                # exact x/255
     mids, scales = color.normalization_constants(space)
-    converted = color.convert("sRGB", space, batch)
+    # k/255 pixels are 0 or above 2**-8: the first contraction's flushes
+    # can be skipped
+    converted = color.convert("sRGB", space, batch, tiny=not u8)
     b = batch.shape[0]
     dev = batch.device
 

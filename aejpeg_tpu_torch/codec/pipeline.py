@@ -237,5 +237,6 @@ class Codec:
                 + float(mids[i])
             ups.append(resize.resize2d(layer, (h, w), "linear"))
 
-        rgb = color.convert(cfg.color_space, "sRGB", torch.stack(ups, dim=-1))
+        rgb = color.convert(cfg.color_space, "sRGB",
+                            torch.stack(ups, dim=-1), tiny=False)  # decoded
         return ImageData(rgb.cpu().numpy(), (h, w, 3), meta.extension)

@@ -46,9 +46,11 @@ def get_color_spaces() -> List[str]:
     return sorted(set(REGISTRY) - {"XYZ"})
 
 
-def convert(from_space: str, to_space: str, data: torch.Tensor
-            ) -> torch.Tensor:
-    """Convert (..., 3) float32 data; one endpoint must be sRGB."""
+def convert(from_space: str, to_space: str, data: torch.Tensor,
+            tiny: bool = True) -> torch.Tensor:
+    """Convert (..., 3) float32 data; one endpoint must be sRGB.  tiny=False
+    promises that every value is 0 or at least about 2**-100 in magnitude
+    (color/transforms.py)."""
     spaces = set(REGISTRY) | {"sRGB"}
     if from_space not in spaces or to_space not in spaces:
         raise ValueError(f"Invalid color space: {from_space} -> {to_space}")
@@ -57,8 +59,8 @@ def convert(from_space: str, to_space: str, data: torch.Tensor
     if from_space == to_space:
         return data
     if from_space == "sRGB":
-        return REGISTRY[to_space].from_srgb(data)
-    return REGISTRY[from_space].to_srgb(data)
+        return REGISTRY[to_space].from_srgb(data, tiny)
+    return REGISTRY[from_space].to_srgb(data, tiny)
 
 
 def normalization_constants(color_space: str):

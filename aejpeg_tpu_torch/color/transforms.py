@@ -11,16 +11,27 @@ each rewrite that changes bits:
   for a dot of a stacked tensor, `_dot3_columns` where XLA expands the dot
   into multiply-adds, and the multiply-adds it finds elsewhere;
 - `x ** e` and `jnp.cbrt` call glibc's powf (ops/libm.py);
-- the code runs with denormals flushed to zero (`ftz`).
+- the code runs with flush-to-zero and denormals-are-zero (`ftz`): a
+  subnormal input reads as zero, and a product or sum that falls below
+  2**-126 is zero.  A float image can hold pixels that small, and a
+  product of a tiny pixel by a coefficient under 1 can fall below it, so
+  the 3x3 contractions flush each input, product and sum, and so do
+  JzAzBz's scalar steps and OKLAB's cube.  A caller whose pixels are 0 or
+  at least about 2**-100 in magnitude passes `tiny=False`, which skips
+  the flushes of the first contraction only: the codec does for u8 images
+  (k/255) and for decoded planes (sums of products of integer levels,
+  tables and DCT basis values).  Every later step keeps its flushes,
+  since a PQ EOTF or a cube can take such a value below 2**-126.  The
+  PQ code's double-float32 pairs flush every rounded result
+  (ops/dfloat.py); which of their partial products LLVM fuses (and so
+  does not flush) differs between XLA's kernels, per channel
+  (`_PQ_UNFUSED`);
+- `jnp.clip` gives +0 for -0 (`_clip01`).
 The PQ transfer function runs on double-float32 pairs as the JAX
 package's does (ops/dfloat.py), with the same clamps at the same places.
-
-Not mirrored: XLA flushes every subnormal intermediate, the port only
-those of the transfer functions, powf and df_exp.  Inputs whose
-intermediates fall below 2**-126 (a PQ luminance in (0, 1e-30], sRGB
-values below about 1e-35) may differ in the last bit.
 """
 
+import contextlib
 import functools
 import math
 
@@ -33,19 +44,32 @@ from ..ops.rounding import fma32
 from . import constants as C
 
 
-def _dot3_rows(x: torch.Tensor, m: np.ndarray, fused) -> torch.Tensor:
+def _keep(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _dot3_rows(x: torch.Tensor, m: np.ndarray, fused,
+               flush: bool) -> torch.Tensor:
     """out_j = x0*m[j,0] + x1*m[j,1] + x2*m[j,2], left to right; for j in
     `fused` each `+ x_i*m[j,i]` is one FMA (ops/rounding.py), otherwise
-    every product and sum rounds."""
-    x0, x1, x2 = x[..., 0], x[..., 1], x[..., 2]
+    every product and sum rounds.  `flush`: each input, product and sum
+    flushed to zero (see the module's docstring)."""
+    _flush = ftz if flush else _keep
+    x0, x1, x2 = _flush(x[..., 0]), _flush(x[..., 1]), _flush(x[..., 2])
+
+    def prod(xi, c):
+        return _flush(xi * float(c))
     return torch.stack(
-        [fma32(x2, m[j, 2], fma32(x1, m[j, 1], x0 * float(m[j, 0])))
+        [_flush(fma32(x2, m[j, 2], _flush(fma32(x1, m[j, 1],
+                                                prod(x0, m[j, 0])))))
          if j in fused else
-         x0 * float(m[j, 0]) + x1 * float(m[j, 1]) + x2 * float(m[j, 2])
+         _flush(_flush(prod(x0, m[j, 0]) + prod(x1, m[j, 1]))
+                + prod(x2, m[j, 2]))
          for j in range(3)], dim=-1)
 
 
-def _dot3(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+def _dot3(x: torch.Tensor, m: np.ndarray, flush: bool = True
+          ) -> torch.Tensor:
     """(..., 3) @ m.T, rounded as XLA's CPU dot emitter does it.  On a 2-D
     x every product is fused.  A batched x XLA flattens to rows, with m
     transposed, and its loop over 8 rows at a time fuses only out_2's
@@ -53,12 +77,13 @@ def _dot3(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
     fuses them all."""
     m = np.asarray(m, np.float32)
     if x.dim() == 2:
-        return _dot3_rows(x, m, range(3))
+        return _dot3_rows(x, m, range(3), flush)
     flat = x.reshape(-1, 3)
     body = flat.shape[0] - flat.shape[0] % 8
-    out = _dot3_rows(flat[:body], m, (2,))
+    out = _dot3_rows(flat[:body], m, (2,), flush)
     if body < flat.shape[0]:
-        out = torch.cat([out, _dot3_rows(flat[body:], m, range(3))])
+        out = torch.cat([out, _dot3_rows(flat[body:], m, range(3),
+                                              flush)])
     return out.reshape(x.shape)
 
 
@@ -69,12 +94,19 @@ def _dot3_columns(x0, x1, x2, m: np.ndarray) -> torch.Tensor:
     add (unlike `_dot3`); on batched columns it emits the stacked dot."""
     if x0.dim() > 1:
         return _dot3(torch.stack([x0, x1, x2], dim=-1), m)
+    x0, x1, x2 = ftz(x0), ftz(x1), ftz(x2)
     return torch.stack(
-        [fma32(x2, m[j, 2], fma32(x0, m[j, 0], x1 * float(m[j, 1])))
+        [ftz(fma32(x2, m[j, 2],
+                   ftz(fma32(x0, m[j, 0], ftz(x1 * float(m[j, 1]))))))
          for j in range(3)], dim=-1)
 
 
 # --------------------------------------------------------------- sRGB <-> lin
+def _clip01(x: torch.Tensor) -> torch.Tensor:
+    """jnp.clip(x, 0, 1) as XLA computes it: -0 comes out as +0."""
+    return torch.clamp(x, 0.0, 1.0) + 0.0
+
+
 def _f32(c: float) -> float:
     """The float32 nearest c, as a Python float (the constant a float32
     tensor meets in the JAX reference)."""
@@ -102,40 +134,44 @@ def linear_to_srgb(v: torch.Tensor) -> torch.Tensor:
     gamma = fma32(powf(torch.clamp(v, min=_f32(0.0031308)), _f32(1 / 2.4)),
                   _f32(1.055), -_f32(0.055))
     srgb = torch.where(v <= _f32(0.0031308), ftz(v) * _f32(12.92), gamma)
-    return torch.clamp(srgb, 0.0, 1.0)
+    return _clip01(srgb)
 
 
 # ------------------------------------------------------------------ 3x3 spaces
-def srgb_to_ycbcr(rgb):
-    return _dot3(rgb, C.M_SRGB_TO_YCBCR)
+# Every conversion takes `tiny`: False when the caller's pixels are 0 or
+# at least about 2**-100 in magnitude, which skips the flushes of the
+# first contraction on them (see the module's docstring).
+def srgb_to_ycbcr(rgb, tiny=True):
+    return _dot3(rgb, C.M_SRGB_TO_YCBCR, tiny)
 
 
-def ycbcr_to_srgb(ycc):
-    return torch.clamp(_dot3(ycc, C.M_YCBCR_TO_SRGB), 0.0, 1.0)
+def ycbcr_to_srgb(ycc, tiny=True):
+    return _clip01(_dot3(ycc, C.M_YCBCR_TO_SRGB, tiny))
 
 
-def srgb_to_ycocg(rgb):
-    return _dot3(rgb, C.M_SRGB_TO_YCOCG)
+def srgb_to_ycocg(rgb, tiny=True):
+    return _dot3(rgb, C.M_SRGB_TO_YCOCG, tiny)
 
 
-def ycocg_to_srgb(x):
-    return torch.clamp(_dot3(x, C.M_YCOCG_TO_SRGB), 0.0, 1.0)
+def ycocg_to_srgb(x, tiny=True):
+    return _clip01(_dot3(x, C.M_YCOCG_TO_SRGB, tiny))
 
 
-def srgb_to_ycocg_r(rgb):
-    return _dot3(rgb, C.M_SRGB_TO_YCOCG_R)
+def srgb_to_ycocg_r(rgb, tiny=True):
+    return _dot3(rgb, C.M_SRGB_TO_YCOCG_R, tiny)
 
 
-def ycocg_r_to_srgb(x):
-    return torch.clamp(_dot3(x, C.M_YCOCG_R_TO_SRGB), 0.0, 1.0)
+def ycocg_r_to_srgb(x, tiny=True):
+    return _clip01(_dot3(x, C.M_YCOCG_R_TO_SRGB, tiny))
 
 
-def srgb_to_xyz(rgb):
-    return _dot3(srgb_to_linear(rgb), C.M_LINEAR_RGB_TO_XYZ)
+def srgb_to_xyz(rgb, tiny=True):
+    # the linear values of pixels that are not tiny are 0 or above 2**-12
+    return _dot3(srgb_to_linear(rgb), C.M_LINEAR_RGB_TO_XYZ, tiny)
 
 
-def xyz_to_srgb(xyz):
-    return linear_to_srgb(_dot3(xyz, C.M_XYZ_TO_LINEAR_RGB))
+def xyz_to_srgb(xyz, tiny=True):
+    return linear_to_srgb(_dot3(xyz, C.M_XYZ_TO_LINEAR_RGB, tiny))
 
 
 # ---------------------------------------------------------------------- OKLAB
@@ -145,14 +181,14 @@ def _cbrt(x: torch.Tensor) -> torch.Tensor:
     return torch.copysign(powf(x.abs(), _f32(1 / 3)), x)
 
 
-def srgb_to_oklab(rgb):
-    lms = _dot3(srgb_to_xyz(rgb), C.OKLAB_M_XYZ_TO_LMS)
+def srgb_to_oklab(rgb, tiny=True):
+    lms = _dot3(srgb_to_xyz(rgb, tiny), C.OKLAB_M_XYZ_TO_LMS)
     return _dot3(_cbrt(lms), C.OKLAB_M_LMSP_TO_LAB)
 
 
-def oklab_to_srgb(lab):
-    lms_p = _dot3(lab, C.OKLAB_M_LAB_TO_LMSP)
-    lms = lms_p * lms_p * lms_p
+def oklab_to_srgb(lab, tiny=True):
+    lms_p = _dot3(lab, C.OKLAB_M_LAB_TO_LMSP, tiny)
+    lms = ftz(ftz(lms_p * lms_p) * lms_p)  # a cube of |x| < 2**-42
     return xyz_to_srgb(_dot3(lms, C.OKLAB_M_LMS_TO_XYZ))
 
 
@@ -167,9 +203,38 @@ def _pq_affine(t, c: float, a: float):
     by an ulp from the source's arithmetic."""
     m = dfl.df_mul_f32(t, c, selected=True)
     s, err = dfl.two_sum(a, m[0])
-    e = err + m[1]
-    hi = s + e
-    return hi, e - (hi - (a + dfl.df_mul_f32(t, c)[0]))
+    e = ftz(err + m[1])
+    hi = ftz(s + e)
+    return hi, ftz(e - ftz(hi - ftz(a + dfl.df_mul_f32(t, c)[0])))
+
+
+# The channels whose PQ kernel XLA compiles without fusing the double-float
+# product's third partial product (dfloat.partials_unfused), per call site:
+# the last channel of each forward transfer (read off jax.jit's results on
+# pixels whose PQ values lie near the 1e-30 clamp).
+_PQ_UNFUSED = {"ictcp_fwd": (2,), "icacb_fwd": (2,), "jzazbz_fwd": (2,)}
+
+
+def _per_channel(site: str, fn, x):
+    """fn of a (..., 3) tensor or pair, the channels that _PQ_UNFUSED lists
+    for `site` computed under partials_unfused and the others as usual
+    (each run of neighbouring channels in one call)."""
+    unfused = _PQ_UNFUSED.get(site, ())
+    if not unfused:
+        return fn(x)
+    parts, lo = [], 0
+    for hi in range(1, 4):
+        if hi < 3 and (hi in unfused) == (lo in unfused):
+            continue
+        xc = (tuple(t[..., lo:hi] for t in x) if isinstance(x, tuple)
+              else x[..., lo:hi])
+        with (dfl.partials_unfused() if lo in unfused
+              else contextlib.nullcontext()):
+            parts.append(fn(xc))
+        lo = hi
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(p, dim=-1) for p in zip(*parts))
+    return torch.cat(parts, dim=-1)
 
 
 def _pq_inverse_df(y_df, m2: float):
@@ -249,31 +314,37 @@ def _f64_pair(name: str):
 
 
 # ---------------------------------------------------------------------- ICtCp
-def srgb_to_ictcp(rgb):
+def srgb_to_ictcp(rgb, tiny=True):
     """XYZ -> LMS -> PQ -> ICtCp entirely in df32, rounded once at the
     output."""
     m_lms, _ = _f64_pair("ICTCP_M_XYZ_TO_LMS")
     m_ict, _ = _f64_pair("ICTCP_M_LMSP_TO_ICTCP")
-    lms = _dot3_df(dfl.df(srgb_to_xyz(rgb)), m_lms)
-    return dfl.df_to_f32(_dot3_df(_pq_inverse_df(lms, C.PQ_M2), m_ict))
+    lms = _dot3_df(dfl.df(srgb_to_xyz(rgb, tiny)), m_lms)
+    lms_p = _per_channel("ictcp_fwd",
+                         lambda v: _pq_inverse_df(v, C.PQ_M2), lms)
+    return dfl.df_to_f32(_dot3_df(lms_p, m_ict))
 
 
-def ictcp_to_srgb(ictcp):
+def ictcp_to_srgb(ictcp, tiny=True):
+    # the first contraction is in df32, whose steps always flush
     _, m_lms_inv = _f64_pair("ICTCP_M_XYZ_TO_LMS")
     _, m_ict_inv = _f64_pair("ICTCP_M_LMSP_TO_ICTCP")
-    lms = _pq_eotf_df(_dot3_df(dfl.df(ictcp), m_ict_inv), C.PQ_M2)
+    lms = _per_channel("ictcp_inv", lambda v: _pq_eotf_df(v, C.PQ_M2),
+                       _dot3_df(dfl.df(ictcp), m_ict_inv))
     xyz = dfl.df_to_f32(_dot3_df(lms, m_lms_inv, selected=True))
     return xyz_to_srgb(xyz)
 
 
 # ---------------------------------------------------------------------- ICaCb
-def srgb_to_icacb(rgb):
-    rgb_bar = _dot3(srgb_to_xyz(rgb), C.ICACB_M_XYZ_TO_RGBBAR)
-    return _dot3(pq_inverse_eotf(rgb_bar), C.ICACB_M_RGBP_TO_ICACB)
+def srgb_to_icacb(rgb, tiny=True):
+    rgb_bar = _dot3(srgb_to_xyz(rgb, tiny), C.ICACB_M_XYZ_TO_RGBBAR)
+    return _dot3(_per_channel("icacb_fwd", pq_inverse_eotf, rgb_bar),
+                 C.ICACB_M_RGBP_TO_ICACB)
 
 
-def icacb_to_srgb(icacb):
-    rgb_bar = pq_eotf(_dot3(icacb, C.ICACB_M_ICACB_TO_RGBP))
+def icacb_to_srgb(icacb, tiny=True):
+    rgb_bar = _per_channel("icacb_inv", pq_eotf,
+                           _dot3(icacb, C.ICACB_M_ICACB_TO_RGBP, tiny))
     return xyz_to_srgb(_dot3(rgb_bar, C.ICACB_M_RGBBAR_TO_XYZ))
 
 
@@ -281,45 +352,55 @@ def icacb_to_srgb(icacb):
 assert (C.JZAZBZ_M_IZAZBZ_TO_LMSP[:, 0] == 1.0).all()
 
 
-def srgb_to_jzazbz(rgb):
+def srgb_to_jzazbz(rgb, tiny=True):
     """Rounded as the JAX reference is compiled for the CPU: XLA expands
     the 3x3 product of the stacked (X', Y', Z) into multiply-adds, and each
     `a*b + c` or `a*b - c*d` whose first product has no other use is one
     FMA."""
-    xyz = srgb_to_xyz(rgb)
+    xyz = srgb_to_xyz(rgb, tiny)
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
-    xp = fma32(x, _f32(C.JZAZBZ_B), -(z * _f32(C.JZAZBZ_B - 1.0)))
-    yp = fma32(y, _f32(C.JZAZBZ_G), -(x * _f32(C.JZAZBZ_G - 1.0)))
+    # every product and FMA of a tiny XYZ can fall below 2**-126
+    xp = ftz(fma32(x, _f32(C.JZAZBZ_B), -ftz(z * _f32(C.JZAZBZ_B - 1.0))))
+    yp = ftz(fma32(y, _f32(C.JZAZBZ_G), -ftz(x * _f32(C.JZAZBZ_G - 1.0))))
     lms = _dot3_columns(xp, yp, z, C.JZAZBZ_M_XYZ_TO_LMS)
-    izazbz = _dot3(pq_inverse_eotf(lms, m2=C.JZAZBZ_P),
+    izazbz = _dot3(_per_channel("jzazbz_fwd", lambda v: pq_inverse_eotf(
+        v, m2=C.JZAZBZ_P), lms),
                    C.JZAZBZ_M_LMSP_TO_IZAZBZ)
     iz = izazbz[..., 0]
-    jz = ((iz * _f32(1.0 + C.JZAZBZ_D)) / fma32(iz, _f32(C.JZAZBZ_D), 1.0)
+    jz = (ftz(ftz(iz * _f32(1.0 + C.JZAZBZ_D))
+              / fma32(iz, _f32(C.JZAZBZ_D), 1.0))
           + _f32(-C.JZAZBZ_D0))
     return torch.stack([jz, izazbz[..., 1], izazbz[..., 2]], dim=-1)
 
 
-def jzazbz_to_srgb(jab):
+def jzazbz_to_srgb(jab, tiny=True):
     """Rounded as the JAX reference is compiled for the CPU, where the
     inverse amplifies 1-ulp differences past 2e-6 near black: each
     `a + b*c` is one FMA, on a 2-D jab XLA drops the products by the
     all-ones first column of JZAZBZ_M_IZAZBZ_TO_LMSP (on a batched one it
     emits the whole dot), and it turns the divisions by the constants B and
     G into products by their float32 reciprocals."""
-    jz0 = jab[..., 0] + C.JZAZBZ_D0
-    iz = jz0 / fma32(jz0, -_f32(C.JZAZBZ_D), _f32(1.0 + C.JZAZBZ_D))
+    # jz0 cancels to below 2**-126 where jab's J is about -D0, and the
+    # products and sums of tiny a, b fall below it
+    if tiny:
+        jab = ftz(jab)
+    jz0 = ftz(jab[..., 0] + C.JZAZBZ_D0)
+    iz = ftz(jz0 / fma32(jz0, -_f32(C.JZAZBZ_D), _f32(1.0 + C.JZAZBZ_D)))
     m = C.JZAZBZ_M_IZAZBZ_TO_LMSP
     az, bz = jab[..., 1], jab[..., 2]
     if jab.dim() > 2:
         lms_p = _dot3(torch.stack([iz, az, bz], dim=-1), m)
     else:
-        lms_p = torch.stack([iz + fma32(bz, m[j, 2], az * float(m[j, 1]))
-                             for j in range(3)], dim=-1)
-    xyz_p = _dot3(pq_eotf(lms_p, m2=C.JZAZBZ_P), C.JZAZBZ_M_LMS_TO_XYZ)
+        lms_p = torch.stack(
+            [ftz(iz + ftz(fma32(bz, m[j, 2], ftz(az * float(m[j, 1])))))
+             for j in range(3)], dim=-1)
+    xyz_p = _dot3(_per_channel("jzazbz_inv", lambda v: pq_eotf(
+        v, m2=C.JZAZBZ_P), lms_p), C.JZAZBZ_M_LMS_TO_XYZ)
     xp, yp, zp = xyz_p[..., 0], xyz_p[..., 1], xyz_p[..., 2]
-    num = fma32(zp, _f32(C.JZAZBZ_B - 1.0), xp)
+    num = ftz(fma32(zp, _f32(C.JZAZBZ_B - 1.0), xp))
     rb = _rcp(C.JZAZBZ_B)
-    x = num * rb
+    x = ftz(num * rb)
     # (G - 1) * x = num * ((G - 1) * rb), the constants folded in float32
-    y = fma32(num, _f32(_f32(C.JZAZBZ_G - 1.0) * rb), yp) * _rcp(C.JZAZBZ_G)
+    y = ftz(ftz(fma32(num, _f32(_f32(C.JZAZBZ_G - 1.0) * rb), yp))
+            * _rcp(C.JZAZBZ_G))
     return linear_to_srgb(_dot3_columns(x, y, zp, C.M_XYZ_TO_LINEAR_RGB))

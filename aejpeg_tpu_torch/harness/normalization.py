@@ -2,8 +2,8 @@
 test/analysis/color_normalization.py:25-52).
 
 Sweeps the full 256^3 sRGB lattice through each color space on the device,
-one 65,536-pixel slab per blue value, and prints/returns (midpoint, scale)
-per channel: midpoint = (min + max) / 2, scale = 127 / max_abs_deviation.
+in 65,536-pixel slabs (one per blue value, 16 a call), and prints/returns
+(midpoint, scale) per channel: midpoint = (min + max) / 2, scale = 127 / max_abs_deviation.
 The shipped constants in color/constants.py were derived this way.
 
 Run: python -m aejpeg_tpu_torch.harness.normalization [--device D]
@@ -16,6 +16,9 @@ import numpy as np
 import torch
 
 from .. import color, resolve_device
+
+
+_PLANES_PER_CALL = 16
 
 
 def derive_constants(spaces=None, device=None
@@ -33,8 +36,12 @@ def derive_constants(spaces=None, device=None
         fn = color.REGISTRY[space].from_srgb
         mins = torch.full((3,), float("inf"), device=dev)
         maxs = torch.full((3,), float("-inf"), device=dev)
-        for bi in range(256):
-            rgb = torch.cat([base, blues[bi].expand(base.shape[0], 1)],
+        # 16 blue planes a call: the conversions are eager op sequences
+        # (thousands of launches a call in the PQ spaces on the card)
+        for b0 in range(0, 256, _PLANES_PER_CALL):
+            nb = blues[b0:b0 + _PLANES_PER_CALL]
+            rgb = torch.cat([base.repeat(nb.shape[0], 1),
+                             nb.repeat_interleave(base.shape[0])[:, None]],
                             dim=-1)
             x = fn(rgb)
             mins = torch.minimum(mins, x.amin(dim=0))

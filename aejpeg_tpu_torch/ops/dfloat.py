@@ -14,7 +14,15 @@ of the JAX functions (tests/test_torch_color.py checks the result):
   one, or none, depends on the code around it), the low part of
   `df_mul_f32`, and the polynomial of XLA's own `log`;
 - a division by a constant becomes a product by its float32 reciprocal;
-- the code runs with flush-to-zero, which reaches `df_exp`'s scaling.
+- the code runs with flush-to-zero and denormals-are-zero: a subnormal
+  input reads as zero, and every rounded result below 2**-126 is a zero of
+  its sign (`_z`).  A pair's low part and the partial products of the
+  error-free transforms are about 2**-24 and 2**-48 of the pair, so they
+  fall below 2**-126 for pairs under about 2**-78, which the PQ code
+  reaches near its 1e-30 clamp.  A product LLVM fuses into an FMA is not
+  rounded, so not flushed: `two_prod`'s last partial product always, and
+  its third (al*bh, added to the running sum) in most kernels, but not in
+  all (`partials_unfused`).
 
 `logf_xla` is the natural logarithm XLA inlines for `jnp.log` on the CPU
 (Cephes' polynomial, with the FMAs of its compiled form).  Functions take
@@ -23,7 +31,9 @@ is two Python floats equal to float32 values (a float32 tensor meets such
 a float in float32 arithmetic on both devices).
 """
 
+import contextlib
 import math
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -47,16 +57,38 @@ _RCP_LN2 = float(np.float32(1.0) / np.float32(math.log(2.0)))
 
 
 # -------------------------------------------------- error-free transforms
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def partials_unfused():
+    """Within this block (on this thread) `two_prod` rounds and flushes its
+    third partial product on its own, as XLA's kernel for some channels of
+    a conversion does (color/transforms.py says which)."""
+    prev = getattr(_LOCAL, "unfused", False)
+    _LOCAL.unfused = True
+    try:
+        yield
+    finally:
+        _LOCAL.unfused = prev
+
+
+def _z(x):
+    """ftz of a tensor result; a Python float (a constant XLA folds on the
+    host) passes as it is."""
+    return ftz(x) if isinstance(x, torch.Tensor) else x
+
+
 def two_sum(a, b):
-    s = a + b
-    bb = s - a
-    return s, (a - (s - bb)) + (b - bb)
+    s = _z(a + b)
+    bb = _z(s - a)
+    return s, _z(_z(a - _z(s - bb)) + _z(b - bb))
 
 
 def quick_two_sum(a, b):
     """Requires |a| >= |b| (or a == 0)."""
-    s = a + b
-    return s, b - (s - a)
+    s = _z(a + b)
+    return s, _z(b - _z(s - a))
 
 
 def _split(a):
@@ -66,24 +98,32 @@ def _split(a):
         t = np.float32(a) * np.float32(_SPLIT)
         hi = t - (t - np.float32(a))
         return float(hi), float(np.float32(a) - hi)
-    t = a * _SPLIT
-    hi = t - (t - a)
-    return hi, a - hi
+    t = _z(a * _SPLIT)
+    hi = _z(t - _z(t - a))
+    return hi, _z(a - hi)
 
 
-def two_prod(a, b):
-    """Dekker's product from 12-bit splits: every partial product is exact,
-    so the contraction of the last one changes nothing."""
+def two_prod(a, b, selected: bool = False):
+    """Dekker's product from 12-bit splits: every partial product is exact
+    (so a contraction changes no value, only which results are flushed).
+    LLVM fuses the last partial product into its add, unless the product
+    is `selected` (see `df_mul_const`), and the third into its sum where
+    `partials_unfused` does not say otherwise."""
     ah, al = _split(a)
     bh, bl = _split(b)
-    s, e1 = two_sum(ah * bh, ah * bl)
-    s, e2 = two_sum(s, al * bh)
-    return quick_two_sum(s, e1 + e2 + al * bl)
+    p3 = al * bh
+    if getattr(_LOCAL, "unfused", False):
+        p3 = _z(p3)
+    p4 = _z(al * bl) if selected else al * bl
+    s, e1 = two_sum(_z(ah * bh), _z(ah * bl))
+    s, e2 = two_sum(s, p3)
+    return quick_two_sum(s, _z(_z(e1 + e2) + p4))
+
 
 
 # ------------------------------------------------------------- df algebra
 def df(x: torch.Tensor) -> DF:
-    return x, torch.zeros_like(x)
+    return ftz(x), torch.zeros_like(x)
 
 
 def df_full(c: Tuple[float, float], like: torch.Tensor) -> DF:
@@ -97,7 +137,7 @@ def df_neg(a: DF) -> DF:
 
 def df_add(a: DF, b: DF) -> DF:
     s, e = two_sum(a[0], b[0])
-    return quick_two_sum(s, e + a[1] + b[1])
+    return quick_two_sum(s, _z(_z(e + a[1]) + b[1]))
 
 
 def df_mul(a: DF, b: DF, fuse: str = "a_hi") -> DF:
@@ -105,14 +145,14 @@ def df_mul(a: DF, b: DF, fuse: str = "a_hi") -> DF:
     into their sum, which one depends on the code around it: `fuse` names
     a's part in the fused one ("a_hi" or "a_lo"), or is "" where both are
     rounded (see `df_mul_const`)."""
-    p, e = two_prod(a[0], b[0])
+    p, e = two_prod(a[0], b[0], selected=fuse == "")
     if fuse == "a_hi":
-        cross = fma32_exact(a[0], b[1], a[1] * b[0])
+        cross = fma32_exact(a[0], b[1], _z(a[1] * b[0]))
     elif fuse == "a_lo":
-        cross = fma32_exact(a[1], b[0], a[0] * b[1])
+        cross = fma32_exact(a[1], b[0], _z(a[0] * b[1]))
     else:
-        cross = a[0] * b[1] + a[1] * b[0]
-    return quick_two_sum(p, e + cross)
+        cross = _z(a[0] * b[1]) + _z(a[1] * b[0])
+    return quick_two_sum(p, _z(e + _z(cross)))
 
 
 def df_mul_const(a: DF, x: float, selected: bool = False) -> DF:
@@ -129,18 +169,19 @@ def df_mul_const(a: DF, x: float, selected: bool = False) -> DF:
 def df_mul_f32(a: DF, b, selected: bool = False) -> DF:
     """a times a float32 tensor or a Python float equal to a float32;
     `selected` as in `df_mul_const`."""
-    p, e = two_prod(a[0], b)
-    return quick_two_sum(p, e + a[1] * b if selected else fma32_exact(a[1], b, e))
+    p, e = two_prod(a[0], b, selected=selected)
+    return quick_two_sum(p, _z(e + _z(a[1] * b)) if selected
+                         else _z(fma32_exact(a[1], b, e)))
 
 
 def df_div(a: DF, b: DF) -> DF:
-    q1 = a[0] / b[0]
+    q1 = _z(a[0] / b[0])
     r = df_add(a, df_neg(df_mul_f32(b, q1)))
-    return quick_two_sum(q1, (r[0] + r[1]) / b[0])
+    return quick_two_sum(q1, _z(_z(r[0] + r[1]) / b[0]))
 
 
 def df_to_f32(a: DF) -> torch.Tensor:
-    return a[0] + a[1]
+    return ftz(a[0] + a[1])
 
 
 # -------------------------------------------------------------- df exp/log

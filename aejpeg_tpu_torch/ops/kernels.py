@@ -12,6 +12,11 @@ Counterpart of the JAX package's ops/pallas_kernels.py:
   u8_to_unit          <- u8_to_unit_lut (_u8_lut_2d, _u8_lut_kernel)
                          csrc/u8_to_unit.cu
 
+and one kernel of the port's own, which has no Pallas counterpart:
+
+  banded_resize       <- the dense resize's two einsums (ops/resize.py),
+                         summed in XLA's CPU order: csrc/banded_resize.cu
+
 Each wrapper checks dtype, shape, contiguity and device.  Given CPU tensors
 it runs the plain version; given CUDA tensors it launches the kernel on the
 current stream (and counts the launch) or raises.  The kernels are built
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .libm import fma32_exact, ftz
 from .rounding import fma32
 
 
@@ -54,7 +60,8 @@ class LaunchCounter:
 LAUNCHES = {"histogram256": LaunchCounter(),
             "clahe_apply_gather": LaunchCounter(),
             "clahe_lut_apply": LaunchCounter(),
-            "u8_to_unit": LaunchCounter()}
+            "u8_to_unit": LaunchCounter(),
+            "banded_resize": LaunchCounter()}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +72,8 @@ _SIGNATURES = {
                          [_VP] * 9 + [_I] * 5 + [_VP]),
     "aej_clahe_lut_apply": ("clahe_apply.cu", [_VP] * 6 + [_I] * 5 + [_VP]),
     "aej_u8_to_unit": ("u8_to_unit.cu", [_VP, _VP, _VP, _LL, _VP]),
+    "aej_banded_resize": ("banded_resize.cu",
+                          [_VP, _VP, _VP, _VP] + [_I] * 9 + [_VP]),
 }
 _FNS = {}
 _FNS_LOCK = threading.Lock()
@@ -300,4 +309,92 @@ def u8_to_unit(x: torch.Tensor) -> torch.Tensor:
         _launch("aej_u8_to_unit", x.device, x.data_ptr(), out.data_ptr(),
                 _unit_table(x.device).data_ptr(), x.numel())
         LAUNCHES["u8_to_unit"].add()
+    return out
+
+
+# ------------------------------------------------------------ banded resize
+def _lane_tree(v):
+    """XLA's sum of its per-lane partial sums: a, a + b, (a + b) + (c + d);
+    each sum flushed (results below 2**-126 are zero under XLA's FTZ)."""
+    if len(v) == 1:
+        return v[0]
+    if len(v) == 2:
+        return ftz(v[0] + v[1])
+    return ftz(ftz(v[0] + v[1]) + ftz(v[2] + v[3]))
+
+
+def banded_resize_plain(x: torch.Tensor, band, axis: int) -> torch.Tensor:
+    """Plain version of banded_resize, in the kernel's order.
+
+    Per output: for each k-block of the band in turn, `lanes` FMA chains
+    from zero (each FMA rounds once, `fma32_exact`; a slot without a tap
+    leaves its chain as it is) and their tree sum, the blocks added in
+    order; then the tree sum of the tail products (the k past the last
+    multiple of `lanes`, all in the last block), added last.  A subnormal
+    input reads as zero and every product and sum below 2**-126 is
+    flushed, as XLA's CPU code runs with FTZ and DAZ: float planes can
+    hold subnormal pixels, and a product of a tiny pixel by a weight under
+    1 falls below 2**-126."""
+    x = ftz(x)
+    idx, weight = band.idx.long(), band.weight
+    valid = idx >= 0
+    view = (1, -1, 1) if axis == 1 else (1, 1, -1)
+
+    def tap(slot):
+        xs = x.index_select(axis, idx[:, slot].clamp(min=0))
+        return (xs, weight[:, slot].view(view), valid[:, slot].view(view))
+
+    width = band.lanes * band.steps + band.lanes
+    out = None
+    tails = None
+    for j in range(band.blocks):
+        base = j * width
+        lanes = []
+        for c in range(band.lanes):
+            acc = torch.zeros((), dtype=x.dtype, device=x.device)
+            for s in range(band.steps):
+                xs, w, ok = tap(base + c * band.steps + s)
+                acc = torch.where(ok, ftz(fma32_exact(xs, w, acc)), acc)
+            lanes.append(acc)
+        blk = _lane_tree(lanes)
+        if out is None:
+            out = blk
+        else:
+            used = valid[:, base:base + band.lanes * band.steps].any(1)
+            out = torch.where(used.view(view), ftz(out + blk), out)
+        tail_ok = valid[:, base + band.lanes * band.steps:base + width]
+        if bool(tail_ok.any()):
+            tails = [torch.where(ok, ftz(xs * w), 0.0) for xs, w, ok in
+                     (tap(base + band.lanes * band.steps + t)
+                      for t in range(band.lanes))]
+            has_tail = tail_ok.any(1).view(view)
+    if tails is not None:
+        out = torch.where(has_tail, ftz(out + _lane_tree(tails)), out)
+    shape = list(x.shape)
+    shape[axis] = band.idx.shape[0]
+    return out.expand(shape).contiguous()
+
+
+def banded_resize(x: torch.Tensor, band, axis: int) -> torch.Tensor:
+    """Resize axis 1 (rows) or 2 (columns) of a contiguous (P, H, W)
+    float32 tensor through `band` (ops/resize.band), bit for bit with the
+    reference's einsum as XLA's CPU dot sums it."""
+    if axis not in (1, 2):
+        raise ValueError(f"banded_resize: axis must be 1 or 2, got {axis}")
+    _check("banded_resize", x, torch.float32, x.shape, x.device)
+    if band.idx.device != x.device:
+        raise ValueError(f"banded_resize: band on {band.idx.device}, "
+                         f"tensor on {x.device}")
+    if not _route("banded_resize", x.device):
+        return banded_resize_plain(x, band, axis)
+    p, h, w = x.shape
+    dst = band.idx.shape[0]
+    out = torch.empty((p, dst, w) if axis == 1 else (p, h, dst),
+                      dtype=torch.float32, device=x.device)
+    if out.numel():
+        _launch("aej_banded_resize", x.device, x.data_ptr(), out.data_ptr(),
+                band.idx.data_ptr(), band.weight.data_ptr(), p, h, w, dst,
+                axis, band.blocks, band.lanes, band.steps,
+                band.idx.shape[1])
+        LAUNCHES["banded_resize"].add()
     return out

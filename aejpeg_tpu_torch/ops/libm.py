@@ -147,8 +147,9 @@ def fma32_exact(a: torch.Tensor, b, c) -> torch.Tensor:
 
 def ftz(x: torch.Tensor) -> torch.Tensor:
     """float32 x with subnormals flushed to a zero of their sign: XLA's CPU
-    code runs with flush-to-zero and denormals-are-zero."""
-    return torch.where(x.abs() < 2.0 ** -126, x * 0.0, x)
+    code runs with flush-to-zero and denormals-are-zero.  (x times a 0/1
+    mask: a zero keeps x's sign, NaN and inf pass.)"""
+    return x * (x.abs() >= 2.0 ** -126)
 
 
 # -------------------------------------------------------------------- powf

@@ -34,8 +34,9 @@ Phases, each fatal on failure:
      on 8 x 512x768 on the card (PSNR > 25 dB, encode/decode Mpix/s, the
      kernels it launched), then the card against the CPU on one image per
      space under phase 4's tolerances; on float inputs, every space's
-     conversion both ways on 1 M pixels and encode_batch of 2 x 512x768
-     per space, card bitwise (byte-identical) to the CPU;
+     conversion both ways on 1,000,000 pixels and on 4,096 subnormal and
+     4,096 near-subnormal ones, and encode_batch of 2 x 512x768 per space,
+     card bitwise (byte-identical) to the CPU;
   8. the per-image Codec on the card, 4 x 512x768, YCoCg q20-80 blocks
      4-128 and YCbCr 8x8: containers payload-identical to encode_batch's on
      the card, decodes within 1e-5 of decode_batch's, mean per-image
@@ -86,10 +87,21 @@ Phases, each fatal on failure:
      defaults (byte-identical to the CPU Codec); the sweep over a 96x128
      group (each combo stops only at MS-SSIM's 161-pixel bound; with
      MS-SSIM stubbed every row is written, ratios equal to encode_batch's,
-     PSNR and SSIM within phase 10's tolerances of the decode path).
+     PSNR and SSIM within phase 10's tolerances of the decode path);
+ 18. dense resizes: resize2d at the odd, narrow and upscaled shapes the
+     CPU tests hold bitwise to jax.jit, both kinds, on float planes, card
+     bitwise equal to the CPU; two u8 and two float images at 505x632
+     (YCoCg) and 128x192 (ICtCp) through encode_batch (containers
+     byte-identical card == CPU) and decode_batch (within 1e-5).
+
+Phase 2 also holds the port's own kernel, banded_resize (the dense
+resize; no Pallas counterpart), bitwise to its plain version at the
+shapes of decode's upsample in phase 3 (a 512x768 batch and two 200x300
+images), at phase 18's odd and narrow shapes, and on planes at 2**-126.
 
 Prints the kernels as one JSON line (with their launches in phase 3, in
-the sweep, on the mesh and in phase 17), the card's name and power limit,
+the sweep, on the mesh, in phase 17 and in phase 18), the card's name and
+power limit,
 the whole script's time, and
 last {"ok": true, "device": {...}}.  Exits non-zero without that line when
 CUDA is unavailable or any phase fails.
@@ -139,6 +151,19 @@ SMALL_LAYER_CASES = (("YCoCg", (4, 128), (96, 128)),
                      ("ICtCp", (4, 64), (40, 60)))
 SMALL_PLANES = ((1, 1), (2, 3), (3, 4), (5, 7), (8, 8), (16, 32), (24, 32),
                 (33, 65), (40, 15), (48, 64), (64, 64), (96, 128))
+# phase 18: every resize of the dense path the CPU tests hold to jax.jit,
+# (source, destination, kind); 4:2:0 chroma of odd sides, 4:1:1 chroma
+# under 64 wide, one dense axis beside a fast one, and upscales
+DENSE_RESIZES = (((37, 53), (19, 27), "area"),
+                 ((128, 192), (128, 48), "area"),
+                 ((101, 256), (51, 128), "area"),
+                 ((19, 27), (37, 53), "linear"),
+                 ((505, 632), (253, 316), "area"),
+                 ((482, 627), (241, 314), "area"),
+                 ((241, 314), (482, 627), "linear"),
+                 ((256, 384), (512, 768), "linear"))
+# and the images phase 18 encodes, (space, shape)
+DENSE_IMAGES = (("YCoCg", (505, 632)), ("ICtCp", (128, 192)))
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_PER_S = 67e12   # CUDA-core rate, also used for the integer ops
 
@@ -237,7 +262,7 @@ def kernel_cases(dev):
     from aejpeg_tpu_torch.ops import canny, kernels as K
     g = torch.Generator(device="cpu").manual_seed(0)
     cases = {"histogram256": [], "clahe_apply_gather": [],
-             "clahe_lut_apply": [], "u8_to_unit": []}
+             "clahe_lut_apply": [], "u8_to_unit": [], "banded_resize": []}
 
     def ints(*shape):
         return torch.randint(0, 256, shape, generator=g,
@@ -329,7 +354,71 @@ def kernel_cases(dev):
         cases["u8_to_unit"].append(
             (label, (x,), K.u8_to_unit_plain, K.u8_to_unit, lib,
              x.numel() * 5, x.numel(), on_path))
+
+    # decode's chroma upsample as phase 3 sends it (one chroma channel of
+    # a batch a call, rows then columns): a 512x768 batch and the two
+    # 200x300 images; then both axes of the odd and narrow shapes of
+    # phase 18, on random planes and on planes at 2**-126 (the flushes)
+    for p, (h, w), dst, kind, on_path, tiny in (
+            ((BATCH, (H // 2, W // 2), (H, W), "linear", True, False),
+             (2, (SMALL[0] // 2, SMALL[1] // 2), SMALL, "linear", True,
+              False))
+            + tuple((2, src, dst, kind, False, tiny)
+                    for tiny in (False, True)
+                    for src, dst, kind in DENSE_RESIZES[:4])):
+        make = _tiny_planes if tiny else torch.rand
+        x = make((p, h, w), generator=g).to(dev)
+        y = make((p, dst[0], w), generator=g).to(dev)
+        for axis, inp in ((1, x), (2, y)):
+            cases["banded_resize"].append(
+                _banded_case(p, inp, axis, dst[axis - 1], kind, on_path,
+                             " at 2**-126" if tiny else ""))
     return cases
+
+
+def _tiny_planes(shape, generator):
+    """Planes whose resize products and sums fall below 2**-126: the
+    first plane in [2**-126, 2**-125), the others a mix of random values,
+    2**-126, just above it, subnormals and zeros of both signs."""
+    import torch
+    x = torch.rand(shape, generator=generator)
+    x[0] = 2.0 ** -126 * (1 + x[0])
+    special = torch.tensor([2.0 ** -126, -2.0 ** -126,
+                            2.0 ** -126 * (1 + 2.0 ** -23), 2.0 ** -130,
+                            -2.0 ** -140, 0.0, -0.0], dtype=torch.float32)
+    pick = torch.randint(0, 2 * len(special), shape, generator=generator)
+    rest = pick[1:] < len(special)
+    x[1:] = torch.where(rest, special[pick[1:] % len(special)], x[1:])
+    return x
+
+
+def _banded_case(p, x, axis, dst, kind, on_path, note=""):
+    """A kernel_cases entry for one banded_resize axis.  bytes: the input
+    read once, the output written once and the band's tables; ops: an FMA
+    (2 flops) per tap of each output.  library: the same resize as one
+    dense torch.matmul by the weight matrix."""
+    import torch
+    from aejpeg_tpu_torch.ops import kernels as K, resize
+    src = x.shape[axis]
+    rows = p * (x.shape[2] if axis == 1 else x.shape[1])
+    band = resize.band(kind, src, dst, rows, x.device)
+    wmat = torch.as_tensor(
+        (resize.area_weights if kind == "area" else resize.linear_weights)(
+            src, dst).astype(np.float32), device=x.device)
+    taps = int((band.idx >= 0).sum())
+    outer = x.numel() // src
+    if axis == 1:
+        def lib(x=x, wmat=wmat):
+            return torch.matmul(wmat, x)
+    else:
+        def lib(x=x, wmat=wmat):
+            return torch.matmul(x, wmat.T)
+    nbytes = (x.numel() + outer * dst) * 4 + band.idx.numel() * 8
+    return (f"axis {axis} {tuple(x.shape)} -> {dst} {kind}{note}", (x,),
+            lambda x, band=band, axis=axis: K.banded_resize_plain(x, band,
+                                                                  axis),
+            lambda x, band=band, axis=axis: K.banded_resize(x, band, axis),
+            lib, nbytes, 2 * taps * outer, on_path)
 
 
 def check_kernels(dev):
@@ -616,9 +705,10 @@ def color_spaces(big, card):
 
 def float_colors(big):
     """Phase 7, float inputs: every space's conversion both ways on
-    FLOAT_PIXELS random float pixels, and encode_batch of two float-input
-    images per space, on the card: bitwise (byte-identical) to the CPU,
-    which tests/test_torch_color.py holds to the JAX package."""
+    FLOAT_PIXELS random float pixels and on subnormal and near-subnormal
+    pixels, and encode_batch of two float-input images per space, on the
+    card: bitwise (byte-identical) to the CPU, which
+    tests/test_torch_color.py holds to the JAX package."""
     import torch
     import aejpeg_tpu_torch as at
     from aejpeg_tpu_torch import color
@@ -643,6 +733,26 @@ def float_colors(big):
                     f"{FLOAT_PIXELS} float pixels differ card vs CPU")
         log(f"  {space}: forward and inverse on {FLOAT_PIXELS} float pixels "
             f"bitwise card == CPU (card {t * 1e3:.3f} ms both ways, cold)")
+    # subnormal and near-subnormal pixels (the flushes), as
+    # tests/test_torch_color.py holds them to the JAX package: forward, and
+    # inverse on the forward image and on the pixels themselves
+    for low, high in ((1e-45, 2.0 ** -126), (1e-38, 1e-30)):
+        for space in color.REGISTRY:
+            x = torch.from_numpy(_tiny_pixels(low, high, len(space)))
+            fwd = color.convert("sRGB", space, x)
+            for what, src, dst, inp in (
+                    ("forward", "sRGB", space, x),
+                    ("inverse", space, "sRGB", torch.cat([fwd, x]))):
+                a = color.convert(src, dst, inp.cuda()).cpu()
+                b = color.convert(src, dst, inp)
+                same = (a.view(torch.int32) == b.view(torch.int32)).all(-1)
+                if not bool(same.all()):
+                    raise AssertionError(
+                        f"{space} {what}: {int((~same).sum())} of "
+                        f"{len(inp)} pixels in [{low:g}, {high:g}) differ "
+                        "card vs CPU")
+        log(f"  every space: forward and inverse on pixels in "
+            f"[{low:g}, {high:g}) bitwise card == CPU")
     noisy = [np.clip(im.data + rng.normal(0, 1e-3, im.data.shape), 0, 1)
              .astype(np.float32) for im in big[:2]]
     imgs = [at.ImageData.from_array(a, extension=".png") for a in noisy]
@@ -657,6 +767,16 @@ def float_colors(big):
                                  "card vs CPU")
         log(f"  {space}: 2 float-input {H}x{W} containers byte-identical "
             "card == CPU")
+
+
+def _tiny_pixels(low, high, seed, n=4096):
+    """(n, 3) float32 pixels, a third of them normal values in [0, 1) and
+    the rest log-uniform in [low, high) (tests/test_torch_color.py)."""
+    rng = np.random.default_rng(seed)
+    x = np.exp(rng.uniform(np.log(low), np.log(high), (n, 3)))
+    normal = rng.random((n, 3)) < 1 / 3
+    x[normal] = rng.random(normal.sum())
+    return x.astype(np.float32)
 
 
 def _same_payloads(a: bytes, b: bytes) -> bool:
@@ -1299,7 +1419,7 @@ def small_kernel_cases(dev):
     plain, kernel)]."""
     import torch
     import torch.nn.functional as F
-    from aejpeg_tpu_torch.ops import canny, kernels as K
+    from aejpeg_tpu_torch.ops import canny, kernels as K, resize
     g = torch.Generator(device="cpu").manual_seed(4)
     out = []
     for h, w in SMALL_PLANES:
@@ -1337,6 +1457,20 @@ def small_kernel_cases(dev):
                             dtype=torch.uint8).to(dev)
         out.append(("u8_to_unit", f"(2, {h}, {w}, 3)", (rgb,),
                     K.u8_to_unit_plain, K.u8_to_unit))
+        if h * w > 1:
+            x = torch.rand((2, h, w), generator=g).to(dev)
+            for axis, dst, kind in ((1, 2 * h, "linear"),
+                                    (2, -(-w // 2), "area")):
+                if dst == x.shape[axis]:
+                    continue
+                band = resize.band(kind, x.shape[axis], dst,
+                                   2 * x.shape[3 - axis], dev)
+                out.append(("banded_resize", f"axis {axis} (2, {h}, {w}) -> "
+                            f"{dst} {kind}", (x,),
+                            lambda x, b=band, a=axis:
+                            K.banded_resize_plain(x, b, a),
+                            lambda x, b=band, a=axis:
+                            K.banded_resize(x, b, a)))
     return out
 
 
@@ -1479,11 +1613,74 @@ def small_layers_phase(card):
     return launches, worst
 
 
+# ------------------------------------------------------------------ phase 18
+
+
+def dense_resize_phase(card):
+    """Phase 18: the dense resize path on the card against the CPU.  Every
+    shape of DENSE_RESIZES, both kinds, on float planes, bitwise; then two
+    u8 images and two float images (two batches) of each DENSE_IMAGES
+    entry through encode_batch (containers byte-identical card against
+    CPU) and decode_batch (within 1e-5).  Returns the launch counts of
+    the card runs."""
+    import torch
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch.ops import resize
+    g = torch.Generator(device="cpu").manual_seed(18)
+    planes = [torch.rand((2, *src), generator=g) for src, _, _ in
+              DENSE_RESIZES]
+    batches = []
+    for space, (h, w) in DENSE_IMAGES:
+        rng = np.random.default_rng(h * w)
+        batches.append((space, (h, w), "u8", small_images(2, h, w,
+                                                          seed=h + w)))
+        batches.append((space, (h, w), "float", [
+            at.ImageData.from_array(rng.random((h, w, 3), dtype=np.float32))
+            for _ in range(2)]))
+
+    def run():
+        outs = [resize.resize2d(x.cuda(), dst, kind).cpu()
+                for x, (_, dst, kind) in zip(planes, DENSE_RESIZES)]
+        enc = [at.encode_batch(imgs, at.CodecConfig(space, QUALITY, BLOCKS))
+               for space, _, _, imgs in batches]
+        return outs, enc, [at.decode_batch(b) for b in enc]
+    t0 = time.perf_counter()
+    (outs, enc, dec), launches = _launches_since_reset(run)
+    log(f"  card run {time.perf_counter() - t0:.3f} s; launches {launches}")
+    _require_launched("dense resizes", launches, ("banded_resize",
+                                                  "u8_to_unit"))
+    for x, got, (src, dst, kind) in zip(planes, outs, DENSE_RESIZES):
+        want = resize.resize2d(x, dst, kind)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"resize {src} -> {dst} {kind}: card "
+                                 "differs from the CPU")
+    log(f"  {len(DENSE_RESIZES)} dense resizes (2 float planes each): card "
+        "bitwise equal to the CPU: "
+        + ", ".join(f"{s[0]}x{s[1]}->{d[0]}x{d[1]} {k}"
+                    for s, d, k in DENSE_RESIZES))
+    for (space, (h, w), inputs, imgs), blobs, decoded in zip(batches, enc,
+                                                             dec):
+        cfg = at.CodecConfig(space, QUALITY, BLOCKS)
+        cpu = at.encode_batch(imgs, cfg, device="cpu")
+        if blobs != cpu:
+            raise AssertionError(f"{space} {h}x{w}: card containers differ "
+                                 "from the CPU's")
+        err = max(float(np.abs(a.data - b.data).max()) for a, b in
+                  zip(decoded, at.decode_batch(cpu, device="cpu")))
+        log(f"  {space} {h}x{w}, 2 {inputs} images: containers "
+            f"byte-identical card == CPU ({sum(map(len, blobs))} bytes); "
+            f"decode_batch card vs CPU max abs {err:.3g} ({card})")
+        if err > 1e-5:
+            raise AssertionError(f"{space} {h}x{w}: decode out of tolerance")
+    return launches
+
+
 # each kernel's __global__ function, as torch.profiler names it
 KERNEL_NAMES = {"histogram256": "hist256_kernel",
                 "clahe_apply_gather": "clahe_gather_kernel",
                 "clahe_lut_apply": "clahe_lut_apply_kernel",
-                "u8_to_unit": "u8_to_unit_kernel"}
+                "u8_to_unit": "u8_to_unit_kernel",
+                "banded_resize": "banded_resize_kernel"}
 SOURCES = {"histogram256": ("aejpeg_tpu_torch/csrc/histogram256.cu",
                             "aejpeg_tpu/ops/pallas_kernels.py:76"),
            "clahe_apply_gather": ("aejpeg_tpu_torch/csrc/clahe_apply.cu",
@@ -1491,7 +1688,9 @@ SOURCES = {"histogram256": ("aejpeg_tpu_torch/csrc/histogram256.cu",
            "clahe_lut_apply": ("aejpeg_tpu_torch/csrc/clahe_apply.cu",
                                "aejpeg_tpu/ops/pallas_kernels.py:362"),
            "u8_to_unit": ("aejpeg_tpu_torch/csrc/u8_to_unit.cu",
-                          "aejpeg_tpu/ops/pallas_kernels.py:197")}
+                          "aejpeg_tpu/ops/pallas_kernels.py:197"),
+           "banded_resize": ("aejpeg_tpu_torch/csrc/banded_resize.cu",
+                             "aejpeg_tpu/ops/resize.py:168")}
 
 
 def main() -> int:
@@ -1580,6 +1779,10 @@ def main() -> int:
         "quadtree roots lie below the largest block, kernels at "
         f"{len(SMALL_PLANES)} plane shapes")
     small_launches, small_err = small_layers_phase(card)
+
+    log(f"[18] dense resizes: {len(DENSE_RESIZES)} shapes and "
+        f"{len(DENSE_IMAGES)} odd or narrow image sizes, card against CPU")
+    dense_launches = dense_resize_phase(card)
     log(f"  whole script {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -1590,6 +1793,7 @@ def main() -> int:
                         "sweep_launches": sweep_launches[name],
                         "mesh_launches": mesh_launches[name],
                         "small_launches": small_launches[name],
+                        "dense_launches": dense_launches[name],
                         "max_abs_err": max(s["max_abs_err"],
                                            small_err[name]),
                         "ms": s["ms"],

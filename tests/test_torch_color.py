@@ -92,23 +92,68 @@ def test_public_spaces():
 @pytest.mark.parametrize("m2", [C.PQ_M2, C.JZAZBZ_P], ids=["pq", "jzazbz"])
 def test_pq_transfer_matches_jax(m2):
     """Both PQ directions bitwise equal to JAX's double-float32 (jitted for
-    the CPU), clamps included: y <= 0 -> c1**m2, and a signal whose
-    numerator is <= 0 -> 0.  A luminance in (0, 1e-30] (clamped to 1e-30)
-    is held to 1.2e-7 only: there XLA's flush-to-zero drops low parts that
-    the port keeps as subnormals."""
-    y = np.concatenate([[-1.0, 0.0, 1e-35, 1e-30, 1e-12],
+    the CPU), clamps included: y <= 0 -> c1**m2, a luminance in
+    (0, 1e-30] -> the value at 1e-30, a subnormal luminance reads as 0,
+    and a signal whose numerator is <= 0 -> 0."""
+    y = np.concatenate([[-1.0, 0.0, 1e-35, 1e-30, 1e-12, 1e-40, 1e-45],
+                        np.geomspace(1e-38, 1e-29, 200),
                         np.geomspace(1e-9, 1.0, 200),
                         np.random.default_rng(5).uniform(0, 1, 20000)]
                        ).astype(np.float32)
     got = T.pq_inverse_eotf(torch.from_numpy(y), m2).numpy()
     want = np.asarray(jax.jit(lambda v: JT.pq_inverse_eotf(v, m2))(y))
-    tiny = (y > 0) & (y <= np.float32(1e-30))
-    np.testing.assert_array_equal(got[~tiny], want[~tiny])
-    np.testing.assert_allclose(got[tiny], want[tiny], rtol=1.2e-7, atol=0)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     assert got[0] == got[1] == np.float32(C.PQ_C1 ** m2)
     e = np.concatenate([[-0.5, 0.0, C.PQ_C1 ** m2 / 10], got[2:],
                         np.linspace(0.0, 1.0, 101)]).astype(np.float32)
     back = T.pq_eotf(torch.from_numpy(e), m2).numpy()
     want = np.asarray(jax.jit(lambda v: JT.pq_eotf(v, m2))(e))
-    np.testing.assert_array_equal(back, want)
+    np.testing.assert_array_equal(back.view(np.uint32), want.view(np.uint32))
     assert back[0] == back[1] == back[2] == 0.0
+
+
+def _tiny_pixels(low, high, seed, n=4096):
+    """(n, 3) float32 pixels, a third of them normal values in [0, 1) and
+    the rest log-uniform in [low, high)."""
+    rng = np.random.default_rng(seed)
+    x = np.exp(rng.uniform(np.log(low), np.log(high), (n, 3)))
+    normal = rng.random((n, 3)) < 1 / 3
+    x[normal] = rng.random(normal.sum())
+    return x.astype(np.float32)
+
+
+def _check_bits(space, x):
+    """Forward on x, and inverse on JAX's forward image of x and on x
+    itself: bit for bit (signed zeros included) with jax.jit of the JAX
+    package's conversions."""
+    for src, dst, inp in (("sRGB", space, x), (space, "sRGB", None)):
+        if inp is None:
+            inp = np.concatenate([want, x]).astype(np.float32)
+        got = color.convert(src, dst, torch.from_numpy(inp)).numpy()
+        want = np.asarray(jax.jit(lambda v: jcolor.convert(src, dst, v))(
+            jnp.asarray(inp)))
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("space", SPACES[1:])
+def test_subnormal_pixels_bitwise(space):
+    """Subnormal pixels read as zero and every subnormal intermediate is
+    flushed, as XLA's CPU code does, in all seven spaces."""
+    _check_bits(space, _tiny_pixels(1e-45, 2.0 ** -126, seed=len(space)))
+
+
+@pytest.mark.parametrize("space", SPACES[1:])
+def test_near_subnormal_pixels_bitwise(space):
+    """Pixels in [1e-38, 1e-30], whose products and sums fall below
+    2**-126, and whose PQ values (ICtCp, ICaCb, JzAzBz) lie at or near the
+    1e-30 clamp, where the double-float partial products do."""
+    _check_bits(space, _tiny_pixels(1e-38, 1e-30, seed=len(space) + 1))
+
+
+@pytest.mark.parametrize("space", ["ICtCp", "ICaCb", "JzAzBz"])
+def test_pq_spaces_near_the_clamp_batched(space):
+    """Pixels whose PQ values lie in [1e-30, 1e-20], as the codec batches
+    them (B, H, W, 3): bitwise both ways."""
+    x = _tiny_pixels(1e-30, 1e-20, seed=len(space) + 2, n=2 * 16 * 32)
+    _check_bits(space, x.reshape(2, 16, 32, 3))
