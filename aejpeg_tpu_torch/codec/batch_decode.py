@@ -19,6 +19,7 @@ Requires same-shape, same-settings containers; group upstream otherwise.
 """
 
 import ctypes
+import functools
 import time
 from typing import Dict, List, Optional
 
@@ -31,10 +32,21 @@ from ..io.container import ContainerReader
 from ..io.image import ImageData
 from ..native import entropy as native_entropy
 from ..ops import dct, quant, resize
-from ..ops.rounding import divide
 from .batch_encode import pinned_buffer, require_native
 from .dense import BatchSpec
 from .tables import device_tables, spec_for
+
+
+@functools.lru_cache(maxsize=None)
+def denormalize_consts(space: str, layers, device: torch.device):
+    """(rcp, mid) float32 tensors of the given layers: the reference's
+    canvas / scale + mid is, as XLA compiles it, fma(canvas, f32(1 /
+    f32(scale)), mid), or canvas * rcp where mid is 0."""
+    mids, scales = color.normalization_constants(space)
+    rcp = [np.float32(1.0) / np.float32(scales[i]) for i in layers]
+    mid = [np.float32(mids[i]) for i in layers]
+    return (torch.as_tensor(np.asarray(rcp, np.float32), device=device),
+            torch.as_tensor(np.asarray(mid, np.float32), device=device))
 
 
 def _stage_d(tables, masks, spec: BatchSpec, consts, cfg: CodecConfig,
@@ -45,30 +57,37 @@ def _stage_d(tables, masks, spec: BatchSpec, consts, cfg: CodecConfig,
     anything (the host fills them from uninitialized scratch); the masks
     zero them before dequantize."""
     h, w = shape
-    mids, scales = color.normalization_constants(cfg.color_space)
     canvases = []
     for gi, g in enumerate(spec.groups):
         ph, pw, n_l = g.ph, g.pw, g.n_l
-        canvas = torch.zeros((b, n_l, ph, pw), dtype=torch.float32,
-                             device=tables[gi][0].device)
+        dev = tables[gi][0].device
+        rcp, mid = denormalize_consts(cfg.color_space, tuple(g.layers), dev)
+        canvas = None
         for si, s in enumerate(g.sizes):
             t = consts[(gi, s)]
             gh, gw = ph // s, pw // s
             zzrows = torch.where(masks[gi][si][:, :, None] != 0,
                                  tables[gi][si], 0)
             lv = zzrows[:, :, t["inv_zz"]].reshape(b, n_l, gh, gw, s, s)
-            coeffs = quant.dequantize(lv, t["q"].reshape(1, n_l, 1, 1, s, s))
-            # dense inverse DCT wants (..., gh, s, gw, s)
-            blocks = dct.idct2_dense(coeffs.permute(0, 1, 2, 4, 3, 5))
-            canvas = canvas + blocks.reshape(b, n_l, ph, pw)
-        canvases.append(canvas)
+            # dequantize into (b * n_l, ph, pw) planes, blocks in place
+            coeffs = torch.empty((b * n_l, ph, pw), dtype=torch.float32,
+                                 device=dev)
+            coeffs.view(b, n_l, gh, s, gw, s).permute(0, 1, 2, 4, 3, 5) \
+                .copy_(quant.dequantize(lv, t["q"].reshape(1, n_l, 1, 1,
+                                                           s, s)))
+            # the per-size sum (the reference's canvas starts from zeros,
+            # which XLA drops) and, after the last size, the denormalize,
+            # as the inverse DCT's epilogue
+            last = si == len(g.sizes) - 1
+            canvas = dct.idct2_planes(coeffs, s, add=canvas,
+                                      affine=(rcp, mid, 1) if last else None)
+        canvases.append(canvas.view(b, n_l, ph, pw))
 
     ups = []
     for li in range(3):
         gi, j = spec.layer_pos[li]
         lh, lw = spec.groups[gi].shape
-        layer = divide(canvases[gi][:, j, :lh, :lw], float(scales[li])) \
-            + float(mids[li])
+        layer = canvases[gi][:, j, :lh, :lw]
         ups.append(resize.resize2d(layer, (h, w), "linear"))
     return color.convert(cfg.color_space, "sRGB", torch.stack(ups, dim=-1),
                          tiny=False)           # decoded planes

@@ -37,7 +37,7 @@ from ..config import CodecConfig
 from ..io.container import ContainerMetadata, ContainerWriter, LayerPayload
 from ..io.image import ImageData
 from ..native import entropy as native_entropy
-from ..ops import dct, kernels, quant, resize
+from ..ops import dct, kernels, resize
 from ..ops.canny import canny
 from . import quadtree as qt
 from .dense import BatchSpec
@@ -141,25 +141,19 @@ def _stage_b(group_planes, spec: BatchSpec, tables, b: int) -> torch.Tensor:
     flat = []
     for gi, g in enumerate(spec.groups):
         planes = group_planes[gi]
-        p, ph, pw = planes.shape
-        n_l = g.n_l
         for s in g.sizes:
             t = tables[(gi, s)]
-            gh, gw = ph // s, pw // s
-            y = dct.dct2(dct.plane_blocks(planes, s))  # (p, gh, gw, s, s)
-            y = y.reshape(b, n_l, gh * gw, s, s)
-            hi = t["hi"].reshape(1, n_l, 1, s, s)
-            lo = t["lo"].reshape(1, n_l, 1, s, s)
-            lv = quant.quantize(y, hi, lo).to(torch.int16)
-            rows = lv.reshape(p, gh * gw, s * s)
-            flat.append(rows[:, :, t["zz"]].reshape(-1))
+            # (p, gh * gw, s * s) zigzag levels, plane p with layer p % n_l
+            flat.append(dct.dct2_quantize(planes, s, t["hi"], t["lo"])
+                        .reshape(-1))
             if "pidx" in t:
                 blocks = planes[t["pidx"][:, None, None],
                                 t["rows"][:, :, None], t["cols"][:, None, :]]
-                yb = dct.dct2(blocks)
-                lvb = quant.quantize(yb, t["hi_rows"], t["lo_rows"])
-                flat.append(lvb.to(torch.int16).reshape(-1, s * s)[:, t["zz"]]
-                            .reshape(-1))
+                # plane-major blocks, n_boundary of them per plane; the
+                # reference's dot has the rows of these blocks only
+                flat.append(dct.dct2_quantize(
+                    blocks, s, t["hi"], t["lo"],
+                    group=g.n_boundary(s)).reshape(-1))
     return torch.cat(flat)
 
 

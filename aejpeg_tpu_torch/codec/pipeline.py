@@ -51,6 +51,16 @@ def _reflect_indices(origins: torch.Tensor, size: int, limit: int
     return origins[:, None] + torch.where(m < avail, m, period - m)
 
 
+def _bucket_capacity(n: int) -> int:
+    """The reference's padded bucket size (next power of two, at least
+    64): its DCT is one dot over the rows of that many blocks, whose order
+    the port's DCT follows (ops/dct.py)."""
+    cap = 64
+    while cap < n:
+        cap *= 2
+    return cap
+
+
 def _encode_bucket(layer: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                    inv_hi: torch.Tensor, inv_lo: torch.Tensor, size: int,
                    h: int, w: int) -> torch.Tensor:
@@ -59,8 +69,10 @@ def _encode_bucket(layer: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     rows = _reflect_indices(ys, size, h)
     cols = _reflect_indices(xs, size, w)
     blocks = layer[rows[:, :, None], cols[:, None, :]]       # (n, s, s)
-    return zigzag.zigzag_gather(
-        quant.quantize(dct.dct2(blocks), inv_hi, inv_lo))
+    n = blocks.shape[0]
+    return dct.dct2_quantize(blocks, size, inv_hi, inv_lo,
+                             dtype=torch.int32,
+                             capacity=_bucket_capacity(n)).reshape(n, -1)
 
 
 def _decode_bucket(vectors: torch.Tensor, qmatrix: torch.Tensor,
@@ -68,7 +80,8 @@ def _decode_bucket(vectors: torch.Tensor, qmatrix: torch.Tensor,
     """Inverse zigzag -> dequantize -> IDCT: (n, s*s) int32 -> (n, s, s)
     float32."""
     levels = zigzag.zigzag_scatter(vectors, size)
-    return dct.idct2(quant.dequantize(levels, qmatrix))
+    return dct.idct2(quant.dequantize(levels, qmatrix),
+                     capacity=_bucket_capacity(vectors.shape[0]))
 
 
 def _paint_bucket(canvas: torch.Tensor, blocks: torch.Tensor,

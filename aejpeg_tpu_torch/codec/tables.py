@@ -66,8 +66,8 @@ def host_tables(cfg: CodecConfig, shape: Tuple[int, int],
     """{(group, size): {name: numpy array}} for images of `shape`: hi, lo, q
     (n_l, s, s) per plane position in the group; zz, inv_zz (s*s,); and,
     given the batch size b (encode), for layers that do not tile evenly by
-    s, the slow table's pidx, rows, cols and per-row hi_rows, lo_rows
-    (N, s, s)."""
+    s, the slow table's pidx, rows and cols (its blocks, plane-major,
+    take the tables of their plane's layer: dct.dct2_quantize's group)."""
     spec = spec_for(cfg, shape)
     out = {}
     for gi, g in enumerate(spec.groups):
@@ -82,13 +82,7 @@ def host_tables(cfg: CodecConfig, shape: Tuple[int, int],
             slow = (None if b is None
                     else slow_indices_np(lh, lw, s, b * g.n_l))
             if slow is not None:
-                nb = g.n_boundary(s)
                 t["pidx"], t["rows"], t["cols"] = slow
-                # per-row tables follow the plane's layer
-                t["hi_rows"] = np.tile(np.repeat(t["hi"], nb, axis=0),
-                                       (b, 1, 1))
-                t["lo_rows"] = np.tile(np.repeat(t["lo"], nb, axis=0),
-                                       (b, 1, 1))
             out[(gi, s)] = t
     return out
 

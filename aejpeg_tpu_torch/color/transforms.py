@@ -287,17 +287,53 @@ def pq_eotf(e: torch.Tensor, m2: float = C.PQ_M2) -> torch.Tensor:
     return dfl.df_to_f32(_pq_eotf_df(dfl.df(e), m2))
 
 
-def _dot3_df(x_df, m64: np.ndarray, selected: bool = False):
+def _dot3_df(x_df, m64: np.ndarray, selected: bool = False, fuses=None):
     """df32 (..., 3) x float64 3x3 matrix -> df32 (..., 3); each constant a
     (hi, lo) pair, products and sums error-compensated (`selected` as in
-    dfloat.df_mul_const)."""
+    dfloat.df_mul_const).  fuses: per output j and term i, (fuse, unfused)
+    for dfloat.df_mul and dfloat.partials_unfused, where the compiled
+    kernel departs from df_mul_const's rule."""
     hi, lo = x_df
     outs = []
     for j in range(3):
         acc = None
         for i in range(3):
-            term = dfl.df_mul_const((hi[..., i], lo[..., i]), float(m64[j, i]),
-                                    selected)
+            x_i = (hi[..., i], lo[..., i])
+            if fuses is None:
+                term = dfl.df_mul_const(x_i, float(m64[j, i]), selected)
+            else:
+                fuse, unfused = fuses[j][i]
+                with (dfl.partials_unfused() if unfused
+                      else contextlib.nullcontext()):
+                    term = dfl.df_mul(x_i, dfl.df_const(float(m64[j, i])),
+                                      fuse)
+            acc = term if acc is None else dfl.df_add(acc, term)
+        outs.append(acc)
+    return (torch.stack([o[0] for o in outs], dim=-1),
+            torch.stack([o[1] for o in outs], dim=-1))
+
+
+# The inverse ICtCp's second dot as XLA's kernel compiles it, per output
+# j and term i: the cross product of dfloat.df_mul that LLVM fuses ("a_hi",
+# "a_lo", or "" for neither, two_prod's last partial product then rounded
+# too), and whether two_prod's third partial product is rounded on its
+# own (dfloat.partials_unfused).  Read off jax.jit results on near-black
+# pixels, where the partial products flush (`python3 tools/xla_dot_order.py
+# ictcp`); elsewhere every choice gives the same bits.
+_ICTCP_LMS_TO_XYZ_FUSES = (
+    (("a_hi", False), ("a_hi", False), ("a_lo", False)),
+    (("a_hi", False), ("a_hi", False), ("a_hi", True)),
+    (("a_hi", True), ("a_hi", True), ("a_hi", False)))
+
+
+def _dot3_f32_df(x: torch.Tensor, m64: np.ndarray):
+    """_dot3_df of df(x) as the inverse ICtCp's first dot compiles: each
+    term is dfloat.df_mul_const_f32 (its input's zero low part folded)."""
+    outs = []
+    for j in range(3):
+        acc = None
+        for i in range(3):
+            term = dfl.df_mul_const_f32(x[..., i], float(m64[j, i]))
             acc = term if acc is None else dfl.df_add(acc, term)
         outs.append(acc)
     return (torch.stack([o[0] for o in outs], dim=-1),
@@ -330,8 +366,9 @@ def ictcp_to_srgb(ictcp, tiny=True):
     _, m_lms_inv = _f64_pair("ICTCP_M_XYZ_TO_LMS")
     _, m_ict_inv = _f64_pair("ICTCP_M_LMSP_TO_ICTCP")
     lms = _per_channel("ictcp_inv", lambda v: _pq_eotf_df(v, C.PQ_M2),
-                       _dot3_df(dfl.df(ictcp), m_ict_inv))
-    xyz = dfl.df_to_f32(_dot3_df(lms, m_lms_inv, selected=True))
+                       _dot3_f32_df(ictcp, m_ict_inv))
+    xyz = dfl.df_to_f32(_dot3_df(lms, m_lms_inv,
+                                 fuses=_ICTCP_LMS_TO_XYZ_FUSES))
     return xyz_to_srgb(xyz)
 
 

@@ -166,6 +166,17 @@ def df_mul_const(a: DF, x: float, selected: bool = False) -> DF:
     return df_mul(a, b, fuse="" if selected else "a_lo" if b[1] < 0 else "a_hi")
 
 
+def df_mul_const_f32(x: torch.Tensor, c: float) -> DF:
+    """df(x) times the Python float c as a (hi, lo) pair of constants,
+    where df(x)'s low part is the zero constant: XLA folds that part's
+    products and the add of zero, and LLVM fuses the product left,
+    x * c.lo, into the sum with two_prod's error."""
+    x = ftz(x)
+    hi, lo = df_const(c)
+    p, e = two_prod(x, hi)
+    return quick_two_sum(p, _z(fma32_exact(x, torch.full_like(x, lo), e)))
+
+
 def df_mul_f32(a: DF, b, selected: bool = False) -> DF:
     """a times a float32 tensor or a Python float equal to a float32;
     `selected` as in `df_mul_const`."""

@@ -145,6 +145,26 @@ def fma32_exact(a: torch.Tensor, b, c) -> torch.Tensor:
     return _round_to_odd(*_two_sum(p, c)).to(torch.float32)
 
 
+_F32_MIDPOINT_MASK = (1 << 29) - 1
+_F32_MIDPOINT = 1 << 28
+
+
+def fma32_sum(p: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """round_f32(p + c) with one rounding, where p is float64 holding the
+    exact product of two float32 values and c is float32: fma32_exact's
+    result at a fraction of its cost.  The float64 sum rounds to float32
+    correctly unless it landed exactly on a float32 midpoint after being
+    rounded itself; only those sums (about 2**-28 of random ones) are
+    recomputed rounded to odd.  Synchronizes with the device once."""
+    s = p + c.to(torch.float64)
+    mid = (s.view(torch.int64) & _F32_MIDPOINT_MASK) == _F32_MIDPOINT
+    if bool(mid.any()):
+        c64 = c.to(torch.float64).expand_as(s)[mid]
+        s = s.clone()
+        s[mid] = _round_to_odd(*_two_sum(p.expand_as(s)[mid], c64))
+    return s.to(torch.float32)
+
+
 def ftz(x: torch.Tensor) -> torch.Tensor:
     """float32 x with subnormals flushed to a zero of their sign: XLA's CPU
     code runs with flush-to-zero and denormals-are-zero.  (x times a 0/1

@@ -7,9 +7,12 @@ Table derivation matches the reference exactly (src/jpeg/jpeg.py:707-724):
 Per-(layer, size) quality comes from the log interpolation in
 utils.quality_factor (src/jpeg/jpeg.py:688-705).
 
-On the device, quantize is round(y*hi + y*lo) with the reciprocal 1/Q held
-as a double-float32 (hi, lo) pair; each product and the sum are separate
-eager ops, so each is rounded once (no FMA contraction).
+Quantize is round(y*hi + y*lo) with the reciprocal 1/Q held as a
+double-float32 (hi, lo) pair, computed as XLA's CPU code computes the
+reference's: fma(y, hi, y*lo), the product y*lo rounded, the FMA rounding
+once, then round half to even and a saturating convert.  The codec
+quantizes inside the forward DCT (ops/dct.dct2_quantize), with the same
+arithmetic (ops/kernels.quantize_plain).
 """
 
 import functools
@@ -18,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .kernels import quantize_plain
 from .resize import linear_weights
 
 
@@ -46,9 +50,10 @@ def reciprocal_table(qmatrix: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 def quantize(coeffs: torch.Tensor, inv_hi: torch.Tensor,
              inv_lo: torch.Tensor) -> torch.Tensor:
-    """round(coeffs / Q) -> int32; torch.round is round-half-to-even, as
-    jnp.round and np.round (src/jpeg/jpeg.py:501) are."""
-    return torch.round(coeffs * inv_hi + coeffs * inv_lo).to(torch.int32)
+    """round(coeffs / Q) -> int32, rounding half to even as jnp.round and
+    np.round (src/jpeg/jpeg.py:501) do, bit for bit with jax.jit of the
+    JAX package's quantize."""
+    return quantize_plain(coeffs, inv_hi, inv_lo, torch.int32)
 
 
 def dequantize(levels: torch.Tensor, qmatrix: torch.Tensor) -> torch.Tensor:

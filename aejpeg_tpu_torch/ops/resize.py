@@ -9,7 +9,7 @@ exact) and a fixed accumulation order: sequential on W, pairwise on H.
 Every other resize is the reference's pair of float32 einsums, H then W.
 XLA compiles each into a 2-D dot, (b*w, h) @ Wh^T and then (b*dh, w) @
 Ww^T, and its CPU backend hands the dot to YNNPACK, whose kernel sums in
-an order that depends on the shape (`xla_dot_plan`).  The port computes
+an order that depends on the shape (ops/xla_dot.py).  The port computes
 the same sums over the few non-zero taps of each output (the band):
 FMAs that round once, in XLA's order, with its flush-to-zero.  The same
 ops run on both devices (`ops/kernels.banded_resize`), so a resize gives
@@ -17,12 +17,11 @@ the same bits on the card as on the CPU.  No matmul library takes part.
 """
 
 import functools
-from typing import NamedTuple, Tuple
-
 import numpy as np
 import torch
 
 from . import kernels
+from .xla_dot import Band, make_band, xla_dot_plan  # noqa: F401 (the plan)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,144 +125,6 @@ def _axis_fast(src: int, dst: int, kind: str, axis: int):
 
 
 # ------------------------------------------------ XLA's dot, as a band
-#
-# YNNPACK's float32 dot kernels on x86-64 (jaxlib 0.9.0), in the order its
-# get_dot_kernel tries them: (block_m, block_n, block_k, cost factor).  A
-# kernel's cost is ceil(m/bm) * ceil(n/bn) * ceil(k/bk) * factor in float32,
-# and the first strictly cheapest kernel wins.  block_k is the kernel's
-# tile_k: the dot keeps tile_k partial sums per output, one per k modulo
-# tile_k, each a chain of FMAs from zero, and adds them as a tree at the
-# end.  The schedule splits k into blocks of 32768 / block_n, each summed
-# that way from zero, and adds the blocks in order; the k past the last
-# multiple of tile_k come last, as a tree of single products.
-_YNN_F32_KERNELS = (
-    (1, 64, 1, 58), (2, 64, 1, 63), (3, 64, 1, 68), (4, 64, 1, 73),
-    (5, 64, 1, 78), (2, 32, 1, 41), (3, 32, 1, 46), (4, 32, 1, 51),
-    (5, 32, 1, 56), (5, 16, 1, 45), (1, 32, 2, 58), (2, 32, 2, 63),
-    (3, 32, 2, 68), (4, 32, 2, 73), (5, 32, 2, 78), (4, 16, 2, 51),
-    (4, 8, 2, 40), (8, 8, 2, 60), (1, 32, 4, 102), (2, 32, 4, 107),
-    (3, 16, 4, 68), (4, 16, 4, 73), (5, 16, 4, 78), (2, 8, 4, 41),
-    (4, 8, 4, 51), (6, 8, 4, 61), (4, 4, 4, 40), (8, 4, 4, 60),
-    (12, 4, 4, 80), (1, 32, 1, 58), (2, 32, 1, 63), (1, 16, 1, 36),
-    (2, 16, 1, 41), (3, 16, 1, 46), (4, 16, 1, 51), (5, 16, 1, 56),
-    (6, 16, 1, 61), (8, 8, 1, 60), (1, 16, 2, 58), (2, 16, 2, 63),
-    (3, 8, 2, 46), (4, 8, 2, 51), (5, 8, 2, 56), (6, 8, 2, 61),
-    (4, 4, 2, 40), (5, 4, 2, 45), (6, 4, 2, 50), (8, 4, 2, 60),
-    (1, 32, 1, 58), (2, 32, 1, 63), (2, 16, 1, 41), (3, 16, 1, 46),
-    (4, 16, 1, 51), (4, 8, 1, 40), (6, 8, 1, 50), (8, 8, 1, 60),
-    (1, 16, 2, 58), (2, 16, 2, 63), (3, 8, 2, 46), (4, 8, 2, 51),
-    (5, 8, 2, 56), (6, 8, 2, 61), (4, 4, 2, 40), (5, 4, 2, 45),
-    (6, 4, 2, 50), (8, 4, 2, 60), (1, 16, 1, 58), (2, 16, 1, 63),
-    (3, 16, 1, 68), (2, 8, 1, 41), (3, 8, 1, 46), (4, 8, 1, 51),
-    (4, 4, 1, 40), (6, 4, 1, 50), (8, 4, 1, 60), (1, 128, 1, 100))
-
-# XLA keeps a dot whose m, n and k are all at most this for its own loop,
-# which sums k in order (one chain).
-_XLA_OWN_DOT_MAX = 7
-# Up to this m, YNNPACK keeps B unpacked unless n is small: measured, see
-# `xla_dot_plan`.
-_SMALL_M = 50
-_SMALL_M_MAX_N = 16
-
-
-def _ynn_best(m: int, n: int, k: int, tile_k=None) -> Tuple[int, int]:
-    """(tile_k, block_n) of YNNPACK's cheapest kernel, optionally among
-    those of one tile_k."""
-    f32 = np.float32
-    best = None
-    for bm, bn, bk, factor in _YNN_F32_KERNELS:
-        if tile_k is not None and bk != tile_k:
-            continue
-        cost = f32(f32(-(-m // bm)) * f32(-(-n // bn))) * f32(-(-k // bk))
-        cost = f32(cost * f32(factor))
-        if best is None or cost < best[0]:
-            best = (cost, bk, bn)
-    return best[1], best[2]
-
-
-@functools.lru_cache(maxsize=None)
-def xla_dot_plan(m: int, k: int, n: int) -> Tuple[int, int]:
-    """(lanes, k_block) of XLA's CPU dot (m, k) @ (k, n) in float32.
-
-    Read off jaxlib 0.9.0 on an x86-64 CPU with AVX-512 (avx512f/dq/bw/vl,
-    FMA): XLA's ynn_support.cc, YNNPACK's get_dot_kernel and the results of
-    jax.jit on dense random operands (`tools/xla_dot_order.py check M K N`
-    holds the rule to XLA at any shape).  Another XLA, or a CPU without
-    AVX-512, may sum in another order.
-    - m, n, k all <= 7: XLA's own loop, one chain over k.
-    - m > 50: YNNPACK's cheapest kernel (`_ynn_best`); checked at random
-      shapes up to m 1000 and k 1500, and its k-blocks up to k 4200.  A k
-      under 4 sums as one chain (measured for n > 8; at k 2-3 with n <= 8
-      a few results in a hundred differ: not modelled).
-    - m <= 50 (measured, not derived; checked for k up to 600): 4 lanes
-      while n <= 16, except at the k where padding k to a multiple of 4
-      costs too much (k < 4; k = 5 once n > 4; k in 6, 9, 10, 13, 17 once
-      n > 8), and for m <= 3 with n <= 3; else one chain.  k-blocks of
-      2048 for one chain, of 8192, 4096 or 2048 for 4 lanes as n is at most
-      4, 12 or 16.  Past k 600 XLA splits k at other places here (not
-      modelled).
-    """
-    if max(m, n, k) <= _XLA_OWN_DOT_MAX:
-        return 1, k
-    if m > _SMALL_M:
-        lanes, bn = _ynn_best(m, n, k)
-        if k < 4:
-            lanes, bn = _ynn_best(m, n, k, 1)
-        return lanes, 32768 // bn
-    if (m <= 3 and n <= 3) or n > _SMALL_M_MAX_N or k < 4:
-        return 1, 2048
-    if (n > 4 and k == 5) or (n > 8 and k in (6, 9, 10, 13, 17)):
-        return 1, 2048
-    return 4, 32768 // (4 if n <= 4 else 8 if n <= 12 else 16)
-
-
-class Band(NamedTuple):
-    """One axis of a resize as XLA sums it: for every output, `blocks`
-    k-blocks, each `lanes` chains of up to `steps` taps and up to `lanes`
-    tail taps (ops/kernels.banded_resize_plain gives the order).  idx is
-    -1 where a slot holds no tap."""
-    idx: torch.Tensor       # (dst, slots) int32
-    weight: torch.Tensor    # (dst, slots) float32
-    blocks: int
-    lanes: int
-    steps: int
-
-
-@functools.lru_cache(maxsize=None)
-def _band_host(kind: str, src: int, dst: int, lanes: int, k_block: int):
-    """Host tables of `Band` for the (dst, src) weights of `kind`, summed
-    with `lanes` partial sums in k-blocks of `k_block`."""
-    w = (area_weights if kind == "area" else linear_weights)(src, dst)
-    w = w.astype(np.float32)
-    per_out = []
-    for o in range(dst):
-        blocks = {}
-        for k in np.nonzero(w[o])[0]:
-            lo = k // k_block * k_block
-            hi = min(src, lo + k_block)
-            main_end = lo + (hi - lo) // lanes * lanes
-            chains, tail = blocks.setdefault(lo, ([[] for _ in range(lanes)],
-                                                  [None] * lanes))
-            if k < main_end:
-                chains[(k - lo) % lanes].append(int(k))
-            else:
-                tail[k - main_end] = int(k)
-        per_out.append([blocks[lo] for lo in sorted(blocks)])
-    n_blocks = max(len(b) for b in per_out)
-    steps = max(len(c) for b in per_out for ch, _ in b for c in ch)
-    width = lanes * steps + lanes
-    idx = np.full((dst, n_blocks * width), -1, np.int32)
-    for o, blocks in enumerate(per_out):
-        for j, (chains, tail) in enumerate(blocks):
-            base = j * width
-            for c, chain in enumerate(chains):
-                idx[o, base + c * steps: base + c * steps + len(chain)] = chain
-            for t, k in enumerate(tail):
-                if k is not None:
-                    idx[o, base + lanes * steps + t] = k
-    weight = np.where(idx >= 0, w[np.arange(dst)[:, None],
-                                  np.maximum(idx, 0)], 0.0)
-    return idx, weight.astype(np.float32), n_blocks, steps
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,12 +132,8 @@ def band(kind: str, src: int, dst: int, m: int,
          device: torch.device) -> Band:
     """The band of one resize axis whose dot has m rows, on `device`
     (cached: the tables are uploaded once per shape and device)."""
-    lanes, k_block = xla_dot_plan(m, src, dst)
-    idx, weight, n_blocks, steps = _band_host(kind, src, dst, lanes,
-                                              k_block)
-    return Band(torch.as_tensor(idx, device=device),
-                torch.as_tensor(weight, device=device), n_blocks, lanes,
-                steps)
+    w = (area_weights if kind == "area" else linear_weights)(src, dst)
+    return make_band(w.astype(np.float32), m, device)
 
 
 def _dense_axis(x: torch.Tensor, axis: int, dst: int,

@@ -30,7 +30,7 @@ from .. import color, resolve_device
 from ..codec.pipeline import _canny_plane, _color_and_downsample
 from ..codec.quadtree import _interleave_bits
 from ..config import CodecConfig
-from ..ops import dct, quant, zigzag
+from ..ops import dct, quant
 from ..utils.mathutils import root_size_for
 from .mesh import shard_devices
 
@@ -91,9 +91,10 @@ def device_encode_uniform(rgb, space: str, block: int = 8,
             cfg.quality_for(block))
         hi, lo = (torch.as_tensor(t, device=dev)
                   for t in quant.reciprocal_table(table))
-        levels = quant.quantize(
-            dct.dct2(_extract_uniform_blocks(norm, block)), hi, lo)
-        out["coeffs"].append(zigzag.zigzag_gather(levels))
+        blocks = _extract_uniform_blocks(norm, block)
+        out["coeffs"].append(dct.dct2_quantize(
+            blocks, block, hi, lo, dtype=torch.int32).reshape(
+                blocks.shape[0], -1))
     return out
 
 

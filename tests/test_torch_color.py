@@ -157,3 +157,20 @@ def test_pq_spaces_near_the_clamp_batched(space):
     them (B, H, W, 3): bitwise both ways."""
     x = _tiny_pixels(1e-30, 1e-20, seed=len(space) + 2, n=2 * 16 * 32)
     _check_bits(space, x.reshape(2, 16, 32, 3))
+
+
+def test_ictcp_inverse_near_black_bitwise():
+    """ICtCp values whose PQ signals lie near the 1e-30 clamp (the forward
+    image of pixels around 1e-30), where the double-float dots' partial
+    products flush: the inverse bitwise equal to JAX's (before the first
+    dot folded its zero low part and the second took XLA's per-term
+    contractions, 2-3 pixels in 200 differed)."""
+    rng = np.random.default_rng(0)
+    rgb = (10.0 ** rng.uniform(-31, -29, (60_000, 3))).astype(np.float32)
+    rgb[::3] = (10.0 ** rng.uniform(-33, -28, (20_000, 3))).astype(
+        np.float32)
+    ict = np.asarray(jax.jit(JT.srgb_to_ictcp)(jnp.asarray(rgb)))
+    want = np.asarray(jax.jit(lambda v: jcolor.convert("ICtCp", "sRGB", v))(
+        jnp.asarray(ict)))
+    got = color.convert("ICtCp", "sRGB", torch.from_numpy(ict.copy())).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -1,11 +1,10 @@
 """The port's encode_batch at odd image sizes, on the CPU, byte for byte
 against the JAX package's: the chroma planes take the dense resize (an odd
 side under 4:2:0; 4:1:1 chroma under 64 wide), on u8-exact and float
-inputs.  The 505x632 case (u8 inputs) is marked slow.  On float inputs
-at 505x632 stage A is bitwise equal to JAX's (test_torch_resize.py), but
-one luma DCT coefficient of the second image quantizes to another level:
-the DCT is held to JAX by tolerance only, so that size is not held to
-JAX's bytes on float inputs."""
+inputs.  The 505x632 cases are marked slow.  Two float cases pin the DCT
+and quantize in XLA's order (ops/dct.py): at 505x632 and at 200x300
+(YCoCg, seed 22) a coefficient lies so near a level boundary that a DCT
+summed in another order quantizes it to another level."""
 
 import numpy as np
 import pytest
@@ -33,3 +32,14 @@ def test_bytes_101x149(space, inputs):
 def test_bytes_505x632():
     check_batch_matches_jax("YCoCg", (4, 128), _arrays(505, 632, 2, seed=10),
                             u8=True)
+
+
+def test_bytes_float_200x300_level_boundary():
+    check_batch_matches_jax("YCoCg", (4, 128), _float_arrays(200, 300, 22),
+                            u8=False)
+
+
+@pytest.mark.slow
+def test_bytes_float_505x632():
+    check_batch_matches_jax("YCoCg", (4, 128), _float_arrays(505, 632, 11),
+                            u8=False)

@@ -151,3 +151,63 @@ def test_stage_a_matches_jitted_jax(space, shape, inputs):
         a, b = a.numpy(), np.asarray(b)
         np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
     np.testing.assert_array_equal(ours[1].numpy(), np.asarray(theirs[1]))
+
+
+# XLA's dot runs every k, the band only the non-zero taps: the terms x * 0
+# it skips show in the sign of a zero result and in NaN (ops/kernels.py
+# banded_resize_plain).
+ZERO_SIGN = [CASES[0], CASES[5], (((101, 256), (51, 128), "area"))]
+ZERO_IDS = [f"{k}-{s[0]}x{s[1]}" for s, d, k in ZERO_SIGN]
+
+
+@pytest.mark.parametrize("src,dst,kind", ZERO_SIGN, ids=ZERO_IDS)
+@pytest.mark.parametrize("signs", ["negative", "mixed"])
+def test_flushed_products_take_xla_zero_signs(src, dst, kind, signs):
+    """Pixels whose products with the weights flush to -0: XLA's skipped
+    terms x * 0 turn a -0 sum into +0 after a pixel >= +0."""
+    rng = np.random.default_rng(sum(src))
+    img = -(np.float32(2.0 ** -120)
+            * (1 + rng.random((2,) + src, dtype=np.float32))).astype(
+                np.float32)
+    if signs == "mixed":
+        img[:, ::2] *= np.float32(-1)
+        img[1, 1::3, ::4] = np.float32(-0.0)
+    _assert_bitwise(img, dst, kind)
+
+
+@pytest.mark.parametrize("src,dst,kind", ZERO_SIGN, ids=ZERO_IDS)
+def test_non_finite_pixels_spread_as_in_xla(src, dst, kind):
+    """A NaN, +inf and -inf: every output whose dot row holds one is NaN
+    (inf * 0), with the bits XLA gives it, or +-inf where the infinity is
+    the row's only non-finite tap."""
+    img = np.random.default_rng(5).random((2,) + src, dtype=np.float32)
+    img[0, 2, 3] = np.nan
+    img[1, 5, 7] = np.inf
+    img[1, 9, 1] = -np.inf
+    _assert_bitwise(img, dst, kind)
+
+
+# Dots past the domain ops/xla_dot.xla_dot_plan measured first: m <= 50
+# with k > 600 (columns in groups of 64, k-blocks by the group's width),
+# and k 2-3 with n 3-8 (the first columns of the rows below the last
+# multiple of 8 sum as two partial sums), through the band path.
+DOTS = [(38, 1100, 33), (20, 800, 100), (38, 1100, 200), (20, 700, 10),
+        (100, 2, 5), (100, 3, 8), (51, 2, 7), (1003, 3, 6), (24, 2, 5),
+        (20, 2, 5), (17, 3, 4)]
+
+
+@pytest.mark.parametrize("m,k,n", DOTS, ids=[f"{m}x{k}x{n}" for m, k, n in
+                                               DOTS])
+def test_dot_order_past_the_measured_domain(m, k, n):
+    from aejpeg_tpu_torch.ops.kernels import banded_resize_plain
+    from aejpeg_tpu_torch.ops.xla_dot import make_band
+    rng = np.random.default_rng(m + k + n)
+    a = rng.random((m, k), dtype=np.float32) - np.float32(0.3)
+    b = rng.random((k, n), dtype=np.float32) - np.float32(0.3)
+    want = np.asarray(jax.jit(
+        lambda x: jnp.dot(x, b, precision="highest"))(a))
+    band = make_band(np.ascontiguousarray(b.T), m, torch.device("cpu"))
+    got = banded_resize_plain(torch.from_numpy(a.T.copy())[None], band,
+                              1)[0].T.numpy()
+    np.testing.assert_array_equal(np.ascontiguousarray(got).view(np.uint32),
+                                  want.view(np.uint32))

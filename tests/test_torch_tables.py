@@ -61,10 +61,20 @@ def test_stage_b_tables_match_jax(space, q, blocks, shape):
         theirs[key] = t
     theirs = tables.to_device(theirs, "cpu")
     assert set(theirs) == set(ours)
+    per_row = ("hi_rows", "lo_rows")
     for key, t in theirs.items():
-        assert set(t) <= set(ours[key])
+        assert set(t) - set(per_row) <= set(ours[key])
         assert ("pidx" in t) == ("pidx" in ours[key])
         for name, arr in t.items():
+            if name in per_row:
+                # the slow blocks, plane-major, each take its plane's
+                # layer's table (the group of dct.dct2_quantize)
+                layers = ours[key][name[:2]]
+                n_l = layers.shape[0]
+                nb = arr.shape[0] // (b * n_l)
+                rows = torch.arange(arr.shape[0]) // nb % n_l
+                _equal(arr, layers[rows])
+                continue
             _equal(arr, ours[key][name])
 
 
