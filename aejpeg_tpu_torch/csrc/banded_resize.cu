@@ -33,20 +33,26 @@
 //   axis 2 (contract W): a warp takes 4 rows, staged in shared memory;
 //     each lane one output of all 4 rows, so a table entry serves 4 rows
 //     and a warp's stores are 128 neighbouring bytes.
-// aej_dct_pass: a dense periodic band (period s <= 128, the DCT), its
-// s x s weights in shared memory, staged once by persistent blocks:
-//   axis 1: a block takes max(s, 32) rows x 32 columns, staged; each
-//     thread up to 4 output rows x 4 columns, so each staged input feeds
-//     up to 16 FMA chains;
-//   axis 2: a block takes 1024 consecutive elements (whole windows),
-//     staged; each thread 4 neighbouring outputs of one window, which
-//     share every input;
-//   with an epilogue on axis 2: quantize to int16/int32 levels written in
-//   block-row zigzag order (stage B), or add + fma(y, rcp, mid) (the
-//   decoder's canvas sum and denormalize).
+// aej_dct2d: both passes of the 2-D DCT (a dense periodic band of period
+// s <= 128 along axis 1, then along axis 2) in one launch, block by block:
+// each s x s block is independent.  Persistent blocks stage the s x s
+// weights once and walk over tiles of whole blocks in shared memory,
+// copying the next tile in (cp.async) while they compute the current one.
+// The first pass writes its float32 results over the staged tile, the
+// second reads them, so the intermediate never leaves the SM.  Each
+// thread holds a register tile of outputs (4 x 8 at s >= 64, 4 x 4 below,
+// one accumulator set per lane of XLA's order) and per k
+// reads its operands as 16-byte vectors, laid out so that a warp's reads
+// are free of bank conflicts: up to 32 FMAs per 3 vector loads.  Each
+// output's chains run in XLA's k order and are never split, so the bits
+// are those of the two-pass plain version.  Tensor cores cannot give
+// them: wgmma and TF32 do not round each step to float32.  With an
+// epilogue: quantize to int16/int32 levels, laid out per block in zigzag
+// order in shared memory and stored as one contiguous run (stage B), or
+// add + fma(y, rcp, mid) (the decoder's canvas sum and denormalize).
 // Bound on the H100: bytes for the resize (a few FMAs per output); for the
-// DCT bytes at small s and FP32 operations at large s (s FMAs per output
-// per pass).
+// DCT bytes at s <= 16 and FP32 operations at s >= 32 (2 s FMAs per
+// output).
 
 #include <cstdint>
 #include <mutex>
@@ -59,9 +65,6 @@ constexpr int kThreads = 256;
 constexpr float kMinNormal = 1.17549435e-38f;
 // Loads a thread keeps in flight while it stages.
 constexpr int kUnroll = 4;
-// Steps of a DCT chain the compiler unrolls, so that their loads issue
-// ahead.
-constexpr int kChainUnroll = 4;
 // Shared memory a block may stage (dynamic; above 48 KB after opting in).
 constexpr int kStageLimit = 96 * 1024;
 
@@ -551,266 +554,353 @@ __device__ __forceinline__ int level(float y, float hi, float lo,
   return (int)v;
 }
 
-// Floats before the staged tile in dct_rows_kernel's shared memory: the
-// padded weights, rounded up to 16 bytes.
-__host__ __device__ __forceinline__ int rows_offset(int s) {
-  return (s * (s + 1) + 3) / 4 * 4;
+// Geometry of dct2d_kernel for block size S.  A tile is NB consecutive
+// blocks (raster order over planes, block rows, block columns), staged in
+// shared memory with rows RS floats apart (padded) and blocks BS apart (at
+// least S * S + 1 words, the slot of a block's int32 level row in the
+// epilogue, and a whole number of vectors).  A thread computes TA x TB outputs of one block: rows V ta + i, columns
+// V tb + j % V + (j / V) S / GB, so that the 8 lanes of a 16-byte load
+// phase read 16-byte words in distinct banks or one word (a broadcast).
+template <int S>
+struct Geo {
+  // threads a block of the grid, and blocks an SM should hold (several
+  // small ones overlap each other's staging, barriers and epilogue)
+  static constexpr int NT = S == 128 ? 512 : 128;
+  static constexpr int MINB = S == 128 ? 1 : 4;
+  static constexpr int V = S < 4 ? S : 4;          // floats a vector load
+  static constexpr int GB = S >= 64 ? 2 : 1;       // column groups
+  static constexpr int TA = V, TB = V * GB;
+  static constexpr int NTA = S / TA, NTB = S / TB;
+  static constexpr int TPB = NTA * NTB;            // threads a block
+  static constexpr int NB = NT / TPB;              // blocks a tile
+  static constexpr int RS = S >= 4 ? S + 4 : S;
+  static constexpr int BS0 = S * RS + (S == 4 ? 4 : S == 8 ? 8 : 0);
+  static constexpr int BS = BS0 > S * S ? BS0 : (S * S + V) / V * V;
+  static constexpr int BUF = NB * BS;              // floats a tile buffer
+  // weights (S, RS), then two tile buffers
+  static constexpr int SMEM = (S * RS + 2 * BUF) * 4;
+};
+
+template <int V>
+__device__ __forceinline__ void ld(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
 }
 
-// One tile of dct_rows_kernel: every output row of thread (tx, ty) lies in
-// the window of its row ty (with th = s one window).
-template <int L, bool F>
-__device__ __forceinline__ void rows_tile(const float* x_sm,
-                                          const float* w_sm, int ws, int s,
-                                          int th, int tx, int ty,
-                                          float (&res)[4][4]) {
-  const int no = th / 32;
-  float acc[L][4][4];
+template <int V>
+__device__ __forceinline__ void st(float* p, const float* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// An asynchronous copy of V floats from device to shared memory.
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (V == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(d), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(d), "l"(src), "n"(V * 4));
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <int S, int L, bool F>
+__device__ __forceinline__ void finish(float (&acc)[L][Geo<S>::TA][Geo<S>::TB],
+                                       float (&res)[Geo<S>::TA][Geo<S>::TB]) {
+#pragma unroll
+  for (int i = 0; i < Geo<S>::TA; ++i)
+#pragma unroll
+    for (int j = 0; j < Geo<S>::TB; ++j)
+      res[i][j] = tree_f<F>(acc[0][i][j], acc[L > 1 ? 1 : 0][i][j],
+                            acc[L > 2 ? 2 : 0][i][j],
+                            acc[L > 3 ? 3 : 0][i][j], L);
+}
+
+// One pass over one block: res[i][j] = sum_k A[k][r] B[k][c], r and c
+// the thread's rows and columns, A and B staged k-major (rows RS apart):
+// the first pass with A = W^T and B the input block, the second with A
+// the first pass's results, transposed, and B = W^T.  k runs in order, k
+// feeding chain k % L (one __fmaf_rn each), and the chains are summed as
+// XLA sums them.  Step k + 1's operands load while step k's FMAs run.
+template <int S, int L, bool F>
+__device__ __forceinline__ void block_pass(const float* a_sm,
+                                           const float* b_sm, int ta, int tb,
+                                           float (&res)[Geo<S>::TA][Geo<S>::TB]) {
+  using G = Geo<S>;
+  constexpr int V = G::V, TA = G::TA, TB = G::TB;
+  constexpr int U = S < 8 ? S : 8;        // steps unrolled (even, L | U)
+  float acc[L][TA][TB];
 #pragma unroll
   for (int c = 0; c < L; ++c)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TA; ++i)
 #pragma unroll
-      for (int n = 0; n < 4; ++n) acc[c][i][n] = 0.0f;
-  const int base = th == s ? 0 : ty / s * s;
-#pragma unroll kChainUnroll
-  for (int k0 = 0; k0 < s; k0 += L) {
+      for (int j = 0; j < TB; ++j) acc[c][i][j] = 0.0f;
+  const float* ap = a_sm + V * ta;
+  const float* bp = b_sm + V * tb;
+  float a[2][TA], b[2][TB];
+  auto load = [&](int k, float* av, float* bv) {
+    ld<V>(ap + k * G::RS, av);
 #pragma unroll
-    for (int c = 0; c < L; ++c) {             // k = k0 + c feeds chain c
-      const int k = k0 + c;
-      const float4 q = *reinterpret_cast<const float4*>(
-          x_sm + (base + k) * 32 + 4 * tx);
-      const float v[4] = {q.x, q.y, q.z, q.w};
+    for (int g = 0; g < G::GB; ++g)
+      ld<V>(bp + k * G::RS + g * (S / G::GB), bv + g * V);
+  };
+  load(0, a[0], b[0]);
+  for (int k0 = 0; k0 < S; k0 += U) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i >= no) break;
-        const float wv = w_sm[((ty + 32 * i) % s) * ws + k];
+    for (int kk = 0; kk < U; ++kk) {
+      if (kk + 1 < U || k0 + U < S)
+        load(k0 + kk + 1, a[(kk + 1) & 1], b[(kk + 1) & 1]);
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-          acc[c][i][n] = fma_f<F>(v[n], wv, acc[c][i][n]);
-      }
+      for (int i = 0; i < TA; ++i)
+#pragma unroll
+        for (int j = 0; j < TB; ++j)
+          acc[kk % L][i][j] = fma_f<F>(a[kk & 1][i], b[kk & 1][j],
+                                       acc[kk % L][i][j]);
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      res[i][n] = tree_f<F>(acc[0][i][n], acc[L > 1 ? 1 : 0][i][n],
-                            acc[L > 2 ? 2 : 0][i][n],
-                            acc[L > 3 ? 3 : 0][i][n], L);
+  finish<S, L, F>(acc, res);
 }
 
-// Axis 1: out[(g * s + r), c] = sum_k W[r][k] x[(g * s + k), c] over the
-// rows of the (P * H, W) matrix.  A tile: th = max(s, 32) rows x 32
-// columns; thread (tx, ty): columns 4 tx.., rows ty, ty + 32, ...  A block
-// stages the weights once and walks over tiles.
-template <int L>
-__global__ void __launch_bounds__(kThreads)
-dct_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
-                const float* __restrict__ wt, int rows, int w, int s,
-                int careful) {
+// Both passes of the 2-D DCT over every S x S block of a (P, H, W) tensor,
+// with the epilogue.  Persistent blocks stage the weights once (transposed,
+// w_sm[k * RS + o] = W[o][k]) and walk over tiles of NB blocks; the next
+// tile is copied in (cp.async) while the current one is computed.  The
+// first pass reads the staged tile and writes its float32 results over
+// it; the second reads them.  Each pass flushes (F) where its own input
+// holds a tiny value (or a weight is small): elsewhere the flushes change
+// nothing.
+template <int S, int L>
+__global__ void __launch_bounds__(Geo<S>::NT, Geo<S>::MINB)
+dct2d_kernel(const float* __restrict__ x, void* __restrict__ out,
+             const float* __restrict__ wt_t, int p_count, int h, int w,
+             int careful, Epilogue ep) {
+  using G = Geo<S>;
+  constexpr int V = G::V, TA = G::TA, TB = G::TB;
+  constexpr int CPR = S / V;                       // vectors a block row
+  constexpr int CHUNKS = G::NB * S * CPR;          // vectors a tile
   extern __shared__ float sm[];
-  const int th = s > 32 ? s : 32;
-  const int ws = s + 1;                       // padded weight row
-  float* w_sm = sm;                           // (s, s + 1)
-  float* x_sm = sm + rows_offset(s);          // (th, 32), 16-byte aligned
-  const int strips = (w + 31) / 32;
-  const int tiles = (rows + th - 1) / th * strips;
-  const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
-  for (int i = threadIdx.x; i < s * s; i += kThreads)
-    w_sm[(i / s) * ws + i % s] = wt[i];
-  const bool vec_w = w % 4 == 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int r0 = (tile / strips) * th;
-    const int c0 = (tile % strips) * 32 + 4 * tx;
-    const bool vec = vec_w && c0 + 3 < w;
+  float* w_sm = sm;
+  float* bufs = sm + S * G::RS;
+  for (int i = threadIdx.x; i < S * S; i += G::NT)
+    w_sm[(i / S) * G::RS + i % S] = wt_t[i];
+  const int gw = w / S, per_plane = (h / S) * gw;
+  const int blocks = p_count * per_plane;
+  const int tiles = (blocks + G::NB - 1) / G::NB;
+  const int jb = threadIdx.x / G::TPB, tw = threadIdx.x % G::TPB;
+  const int tb = tw % G::NTB, ta = tw / G::NTB;
+  // offset of block b's first element in x (and in a float output)
+  auto base_of = [=](int b) {
+    const int p = b / per_plane, r = b % per_plane;
+    return (p * h + (r / gw) * S) * w + (r % gw) * S;
+  };
+  // A thread's vectors of a tile: NCH rows KSTEP apart of one block
+  // (threads side by side take neighbouring vectors of a row, then the
+  // next block); CPR * NB divides NT, so the block and the column are the
+  // same in every tile.
+  constexpr int KSTEP = G::NT / (CPR * G::NB);
+  constexpr int NCH = CHUNKS / G::NT;
+  static_assert(G::NT % (CPR * G::NB) == 0 && CHUNKS % G::NT == 0,
+                "a thread's vectors lie in one block");
+  static_assert(G::BS >= S * S + 1 && G::BS % V == 0,
+                "a block's int32 level row fits its slot in the tile buffer");
+  const int s_cc = threadIdx.x % CPR, s_blk = threadIdx.x / CPR % G::NB;
+  const int s_k = threadIdx.x / (CPR * G::NB);
+  const int s_off = s_blk * G::BS + s_k * G::RS + s_cc * V;
+  auto stage = [&](int tile, float* buf) {
+    const int b = tile * G::NB + s_blk;
+    if (b >= blocks) return;
+    const float* src = x + base_of(b) + s_k * w + s_cc * V;
+#pragma unroll
+    for (int i = 0; i < NCH; ++i)
+      cp_async<V>(buf + s_off + i * KSTEP * G::RS, src + i * KSTEP * w);
+  };
+  int tile = blockIdx.x;
+  if (tile < tiles) stage(tile, bufs);
+  cp_commit();
+  for (int it = 0; tile < tiles; tile += gridDim.x, ++it) {
+    float* cur = bufs + (it & 1) * G::BUF;
+    if (tile + (int)gridDim.x < tiles)
+      stage(tile + gridDim.x, bufs + ((it + 1) & 1) * G::BUF);
+    cp_commit();
+    cp_wait_one();
+    // this thread's vectors: tiny values (then reading subnormals as zero)
     int tiny = 0;
-    for (int r = ty; r < th; r += 32) {
-      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (r0 + r < rows) {
-        const float* xp = x + (long long)(r0 + r) * w + c0;
-        if (vec) {
-          const float4 q = *reinterpret_cast<const float4*>(xp);
-          v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-        } else {
+    if (tile * G::NB + s_blk < blocks) {
 #pragma unroll
-          for (int n = 0; n < 4; ++n) v[n] = c0 + n < w ? xp[n] : 0.0f;
+      for (int i = 0; i < NCH; ++i) {
+        float* q = cur + s_off + i * KSTEP * G::RS;
+        float v[V];
+        ld<V>(q, v);
+        int t = 0;
+#pragma unroll
+        for (int n = 0; n < V; ++n) t |= tiny_input(v[n]) ? 1 : 0;
+        if (t) {
+#pragma unroll
+          for (int n = 0; n < V; ++n) v[n] = ftz(v[n]);
+          st<V>(q, v);
         }
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        v[n] = ftz(v[n]);
-        tiny |= tiny_input(v[n]) ? 1 : 0;
-      }
-      *reinterpret_cast<float4*>(x_sm + r * 32 + 4 * tx) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
-    const bool flush = __syncthreads_or(tiny | careful) != 0;
-    if (c0 < w) {
-      float res[4][4];
-      if (flush) {
-        rows_tile<L, true>(x_sm, w_sm, ws, s, th, tx, ty, res);
-      } else {
-        rows_tile<L, false>(x_sm, w_sm, ws, s, th, tx, ty, res);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = r0 + ty + 32 * i;
-        if (i >= th / 32 || r >= rows) break;
-        float* dp = out + (long long)r * w + c0;
-        if (vec) {
-          *reinterpret_cast<float4*>(dp) = make_float4(res[i][0], res[i][1],
-                                                       res[i][2], res[i][3]);
-        } else {
-          for (int n = 0; n < 4 && c0 + n < w; ++n) dp[n] = res[i][n];
-        }
+        tiny |= t;
       }
     }
-    __syncthreads();
-  }
-}
-
-// Four neighbouring outputs i0..i0+3 of the staged 1024-element tile
-// (one window when s >= 4, which share every input).
-template <int L, bool F>
-__device__ __forceinline__ void cols_tile(const float* x_sm,
-                                          const float* w_sm, int s, int i0,
-                                          float (&res)[4]) {
-  if (s >= 4) {
-    const int base = i0 / s * s, r0 = i0 % s;
-    float acc[L][4];
-#pragma unroll
-    for (int c = 0; c < L; ++c)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) acc[c][n] = 0.0f;
-#pragma unroll kChainUnroll
-    for (int k0 = 0; k0 < s; k0 += L) {
-#pragma unroll
-      for (int c = 0; c < L; ++c) {           // k = k0 + c feeds chain c
-        const int k = k0 + c;
-        const float v = x_sm[base + k];
-        const float4 q = *reinterpret_cast<const float4*>(w_sm + k * s + r0);
-        acc[c][0] = fma_f<F>(v, q.x, acc[c][0]);
-        acc[c][1] = fma_f<F>(v, q.y, acc[c][1]);
-        acc[c][2] = fma_f<F>(v, q.z, acc[c][2]);
-        acc[c][3] = fma_f<F>(v, q.w, acc[c][3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      res[n] = tree_f<F>(acc[0][n], acc[L > 1 ? 1 : 0][n],
-                         acc[L > 2 ? 2 : 0][n], acc[L > 3 ? 3 : 0][n], L);
-    return;
-  }
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    const int base = (i0 + n) / s * s, r = (i0 + n) % s;
-    float acc[L];
-#pragma unroll
-    for (int c = 0; c < L; ++c) acc[c] = 0.0f;
-    for (int k0 = 0; k0 < s; k0 += L) {
-#pragma unroll
-      for (int c = 0; c < L; ++c)
-        acc[c] = fma_f<F>(x_sm[base + k0 + c], w_sm[(k0 + c) * s + r],
-                          acc[c]);
-    }
-    res[n] = tree_f<F>(acc[0], acc[L > 1 ? 1 : 0], acc[L > 2 ? 2 : 0],
-                       acc[L > 3 ? 3 : 0], L);
-  }
-}
-
-// Axis 2: windows of s consecutive elements of the flat (P, H, W) tensor.
-// A tile: 1024 consecutive elements, staged; thread: 4 neighbouring
-// outputs.  A block stages the weights (transposed, wt_t[k][r]) once and
-// walks over tiles.
-template <int L>
-__global__ void __launch_bounds__(kThreads)
-dct_cols_kernel(const float* __restrict__ x, void* __restrict__ out,
-                const float* __restrict__ wt_t, long long total, int h,
-                int w, int s, int careful, Epilogue ep) {
-  extern __shared__ float sm[];
-  float* w_sm = sm;                 // (s, s) transposed: w_sm[k * s + r]
-  float* x_sm = sm + s * s;         // 1024 elements
-  for (int i = threadIdx.x; i < s * s; i += kThreads) w_sm[i] = wt_t[i];
-  const long long tiles = (total + 1023) / 1024;
-  const long long plane = (long long)h * w;
-  const int i0 = 4 * threadIdx.x;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long e0 = tile * 1024;
-    float v[4];
-    if (e0 + i0 + 3 < total && total % 4 == 0) {
-      const float4 q = *reinterpret_cast<const float4*>(x + e0 + i0);
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    const bool f1 = __syncthreads_or(tiny | careful) != 0;
+    const int b = tile * G::NB + jb;
+    const bool valid = b < blocks;
+    float* xb = cur + jb * G::BS;
+    float res[TA][TB];
+    if (f1) {
+      block_pass<S, L, true>(w_sm, xb, ta, tb, res);
     } else {
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        v[n] = e0 + i0 + n < total ? x[e0 + i0 + n] : 0.0f;
+      block_pass<S, L, false>(w_sm, xb, ta, tb, res);
     }
-    int tiny = 0;
+    __syncthreads();                    // the tile is read: Y goes over it
+    // Y transposed, yt[c][r] = Y[r][c], so that the second pass reads it
+    // k-major as the first read the input
+    int tiny2 = 0;
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      v[n] = ftz(v[n]);
-      tiny |= tiny_input(v[n]) ? 1 : 0;
-    }
-    *reinterpret_cast<float4*>(x_sm + i0) = make_float4(v[0], v[1], v[2],
-                                                        v[3]);
-    const bool flush = __syncthreads_or(tiny | careful) != 0;
-    if (e0 + i0 < total) {
-      float res[4];
-      if (flush) {
-        cols_tile<L, true>(x_sm, w_sm, s, i0, res);
-      } else {
-        cols_tile<L, false>(x_sm, w_sm, s, i0, res);
+    for (int j = 0; j < TB; ++j) {
+      const int c = V * tb + j % V + (j / V) * (S / G::GB);
+      float v[V];
+#pragma unroll
+      for (int n = 0; n < V; ++n) {
+        v[n] = res[n][j];
+        tiny2 |= tiny_input(v[n]) ? 1 : 0;
       }
-      if (ep.out_kind == 0) {
+      st<V>(xb + c * G::RS + V * ta, v);
+    }
+    // the addend of the float epilogue, loaded while the second pass runs
+    // (where the registers allow)
+    constexpr bool PRE = TA * TB * L <= 32;
+    float addv[PRE ? TA : 1][PRE ? TB : 1];
+    if (PRE && ep.out_kind == 0 && ep.add && valid) {
+      const int e0 = base_of(b);
+#pragma unroll
+      for (int i = 0; i < (PRE ? TA : 1); ++i) {
+        const int r = V * ta + i;
+#pragma unroll
+        for (int g = 0; g < (PRE ? G::GB : 1); ++g)
+          ld<V>(ep.add + e0 + r * w + V * tb + g * (S / G::GB),
+                &addv[i][g * V]);
+      }
+    }
+    const bool f2 = __syncthreads_or((valid ? tiny2 : 0) | careful) != 0;
+    if (f2) {
+      block_pass<S, L, true>(xb, w_sm, ta, tb, res);
+    } else {
+      block_pass<S, L, false>(xb, w_sm, ta, tb, res);
+    }
+    const int p = b / per_plane;
+    if (ep.out_kind == 0) {
+      if (valid) {
         float* op = static_cast<float*>(out);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const long long e = e0 + i0 + n;
-          if (e >= total) break;
-          float y = res[n];
-          if (ep.add) y = add(ep.add[e], y);
-          if (ep.rcp) {
-            const int l = (int)((e / plane) / ep.f_group % ep.f_tables);
-            const float m = ep.mid[l];
-            y = m == 0.0f ? ftz(__fmul_rn(y, ep.rcp[l]))
-                          : ftz(__fmaf_rn(y, ep.rcp[l], m));
-          }
-          res[n] = y;
+        const int e0 = base_of(b);
+        float rcp = 1.0f, m = 0.0f;
+        if (ep.rcp) {
+          const int l = p / ep.f_group % ep.f_tables;
+          rcp = ep.rcp[l];
+          m = ep.mid[l];
         }
-        if (total % 4 == 0) {
-          *reinterpret_cast<float4*>(op + e0 + i0) =
-              make_float4(res[0], res[1], res[2], res[3]);
-        } else {
-          for (int n = 0; n < 4 && e0 + i0 + n < total; ++n)
-            op[e0 + i0 + n] = res[n];
-        }
-      } else {
-        // levels, (P, gh * gw, s * s), one row per block in raster order
-        const int gw = w / s, gh = h / s;
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const long long e = e0 + i0 + n;
-          if (e >= total) break;
-          const long long p = e / plane;
-          const int rem = (int)(e - p * plane);
-          const int hh = rem / w, ww = rem % w;
-          const int blk = (hh / s) * gw + ww / s;
-          const int q = (hh % s) * s + ww % s;
-          const int l = (int)(p / ep.q_group % ep.q_tables);
-          const int lv = level(res[n], __ldg(ep.hi + l * s * s + q),
-                               __ldg(ep.lo + l * s * s + q), ep.out_kind);
-          const long long at = (p * gh * gw + blk) * (long long)(s * s)
-                               + (ep.perm ? __ldg(ep.perm + q) : q);
-          if (ep.out_kind == 1) {
-            static_cast<int16_t*>(out)[at] = (int16_t)lv;
-          } else {
-            static_cast<int32_t*>(out)[at] = lv;
+        for (int i = 0; i < TA; ++i) {
+          const int r = V * ta + i;
+#pragma unroll
+          for (int g = 0; g < G::GB; ++g) {
+            const int e = e0 + r * w + V * tb + g * (S / G::GB);
+            float y[V], a[V];
+            if (PRE) {
+#pragma unroll
+              for (int n = 0; n < V; ++n)
+                a[n] = addv[PRE ? i : 0][PRE ? g * V + n : 0];
+            } else if (ep.add) {
+              ld<V>(ep.add + e, a);
+            }
+#pragma unroll
+            for (int n = 0; n < V; ++n) {
+              y[n] = res[i][g * V + n];
+              if (ep.add) y[n] = add(a[n], y[n]);
+              if (ep.rcp)
+                y[n] = m == 0.0f ? ftz(__fmul_rn(y[n], rcp))
+                                 : ftz(__fmaf_rn(y[n], rcp, m));
+            }
+            st<V>(op + e, y);
           }
         }
       }
+    } else {
+      // levels of the tile's blocks, (blocks, S * S) rows in zigzag order,
+      // laid out in shared memory (each block's row one word longer, so
+      // that the lanes of neighbouring blocks write to other banks), then
+      // stored as one contiguous run of words
+      __syncthreads();                  // Y is read: the levels go over it
+      const int l = p / ep.q_group % ep.q_tables;
+      const bool half = ep.out_kind == 1;
+      const int lstride = (half ? S * S / 2 : S * S) + 1;   // words
+      int16_t* lv16 = reinterpret_cast<int16_t*>(cur) + jb * 2 * lstride;
+      int32_t* lv32 = reinterpret_cast<int32_t*>(cur) + jb * lstride;
+      const float* hi = ep.hi + l * S * S;
+      const float* lo = ep.lo + l * S * S;
+      const float* perm = reinterpret_cast<const float*>(ep.perm);
+#pragma unroll
+      for (int i = 0; i < TA; ++i) {
+        const int r = V * ta + i;
+#pragma unroll
+        for (int g = 0; g < G::GB; ++g) {
+          const int q0 = r * S + V * tb + g * (S / G::GB);
+          float hv[V], lv[V], pv[V];
+          ld<V>(hi + q0, hv);
+          ld<V>(lo + q0, lv);
+          if (perm) ld<V>(perm + q0, pv);
+#pragma unroll
+          for (int n = 0; n < V; ++n) {
+            const int at = perm ? __float_as_int(pv[n]) : q0 + n;
+            const int v = level(res[i][g * V + n], hv[n], lv[n],
+                                ep.out_kind);
+            if (half) {
+              lv16[at] = (int16_t)v;
+            } else {
+              lv32[at] = v;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      const int nb = min(G::NB, blocks - tile * G::NB);
+      const int* src = reinterpret_cast<const int*>(cur);
+      if (half) {
+        constexpr int WD = S * S / 2;
+        int* dst = static_cast<int*>(out) + (long long)tile * G::NB * WD;
+        for (int o = threadIdx.x; o < nb * WD; o += G::NT)
+          dst[o] = src[o / WD * (WD + 1) + o % WD];
+      } else {
+        constexpr int WD = S * S;
+        int* dst = static_cast<int*>(out) + (long long)tile * G::NB * WD;
+        for (int o = threadIdx.x; o < nb * WD; o += G::NT)
+          dst[o] = src[o / WD * (WD + 1) + o % WD];
+      }
     }
-    __syncthreads();
+    __syncthreads();                    // the buffer is free for a stage
   }
 }
 
@@ -851,9 +941,10 @@ CacheEntry* find_entry(CacheEntry* e, int n, const void* kernel, int device,
 }
 
 // Opts the current device's `kernel` in to `bytes` of dynamic shared
-// memory and gives the most blocks of it the card holds at once (`grid`).
+// memory and gives the most blocks of `threads` threads the card holds at
+// once (`grid`).
 template <class K>
-int launch_info(K kernel, int bytes, long long* grid) {
+int launch_info(K kernel, int bytes, long long* grid, int threads) {
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err) return err;
@@ -880,7 +971,7 @@ int launch_info(K kernel, int bytes, long long* grid) {
   }
   int blocks = 0, sms = 0;
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                           kThreads, bytes);
+                                                           threads, bytes);
   if (err) return err;
   err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev);
@@ -894,41 +985,44 @@ int launch_info(K kernel, int bytes, long long* grid) {
 // Persistent blocks: as many as fit on the card at once, at most the work.
 // Opts the kernel in to `bytes` first.
 template <class K>
-int persistent_grid(K kernel, int bytes, long long work, long long* grid) {
+int persistent_grid(K kernel, int bytes, long long work, long long* grid,
+                    int threads = kThreads) {
   long long most = 1;
-  const int err = launch_info(kernel, bytes, &most);
+  const int err = launch_info(kernel, bytes, &most, threads);
   if (err) return err;
   *grid = most < work ? most : (work > 0 ? work : 1);
   return 0;
 }
 
-template <int L>
-int launch_dct(const float* x, void* out, const float* wt, const float* wt_t,
-               int p, int h, int w, int s, int axis, int careful,
-               const Epilogue& ep, cudaStream_t stream) {
+template <int S, int L>
+int launch_dct2d(const float* x, void* out, const float* wt_t, int p, int h,
+                 int w, int careful, const Epilogue& ep,
+                 cudaStream_t stream) {
+  using G = Geo<S>;
+  const long long blocks = (long long)p * (h / S) * (w / S);
   long long grid = 1;
-  if (axis == 1) {
-    const int th = s > 32 ? s : 32;
-    const int bytes = (rows_offset(s) + th * 32) * 4;
-    const long long rows = (long long)p * h;
-    const int err = persistent_grid(dct_rows_kernel<L>, bytes,
-                                    (rows + th - 1) / th * ((w + 31) / 32),
-                                    &grid);
-    if (err) return err;
-    dct_rows_kernel<L><<<(unsigned)grid, kThreads, bytes, stream>>>(
-        x, static_cast<float*>(out), wt, (int)rows, w, s, careful);
-  } else {
-    const int bytes = (s * s + 1024) * 4;
-    const long long total = (long long)p * h * w;
-    const int err = persistent_grid(dct_cols_kernel<L>, bytes,
-                                    (total + 1023) / 1024, &grid);
-    if (err) return err;
-    dct_cols_kernel<L><<<(unsigned)grid, kThreads, bytes, stream>>>(
-        x, out, wt_t, total, h, w, s, careful, ep);
-  }
+  const int err = persistent_grid(dct2d_kernel<S, L>, G::SMEM,
+                                  (blocks + G::NB - 1) / G::NB, &grid, G::NT);
+  if (err) return err;
+  dct2d_kernel<S, L><<<(unsigned)grid, G::NT, G::SMEM, stream>>>(
+      x, out, wt_t, p, h, w, careful, ep);
   return (int)cudaGetLastError();
 }
 
+template <int S>
+int launch_dct2d_lanes(int lanes, const float* x, void* out,
+                       const float* wt_t, int p, int h, int w, int careful,
+                       const Epilogue& ep, cudaStream_t stream) {
+  switch (lanes) {
+    case 1: return launch_dct2d<S, 1>(x, out, wt_t, p, h, w, careful, ep,
+                                      stream);
+    case 2: return launch_dct2d<S, 2>(x, out, wt_t, p, h, w, careful, ep,
+                                      stream);
+    case 4: return launch_dct2d<S, 4>(x, out, wt_t, p, h, w, careful, ep,
+                                      stream);
+    default: return -1;
+  }
+}
 
 template <int LANES>
 int launch_banded(const float* x, float* out, const Band& b, int p, int h,
@@ -981,29 +1075,31 @@ extern "C" int aej_banded_resize(
   }
 }
 
-extern "C" int aej_dct_pass(
-    const float* x, void* out, const float* wt, const float* wt_t, int p,
-    int h, int w, int s, int axis, int lanes, int careful, const float* hi,
-    const float* lo, int q_group, int q_tables, const int* perm,
-    int out_kind, const float* add_to, const float* rcp, const float* mid,
-    int f_group, int f_tables, void* stream) {
-  // the tiles hold whole windows only for a power of two
-  if (s < 1 || s > 128 || (s & (s - 1)) || (axis == 1 ? h : w) % s)
-    return -1;
+extern "C" int aej_dct2d(
+    const float* x, void* out, const float* wt_t, int p, int h, int w,
+    int s, int lanes, int careful, const float* hi, const float* lo,
+    int q_group, int q_tables, const int* perm, int out_kind,
+    const float* add_to, const float* rcp, const float* mid, int f_group,
+    int f_tables, void* stream) {
+  if (h % s || w % s) return -1;
   Epilogue ep{hi,   lo,     q_group, q_tables, perm,
               hi ? out_kind : 0, add_to, rcp, mid, f_group, f_tables};
   cudaStream_t st = (cudaStream_t)stream;
-  switch (lanes) {
-    case 1:
-      return launch_dct<1>(x, out, wt, wt_t, p, h, w, s, axis, careful, ep,
-                           st);
-    case 2:
-      return launch_dct<2>(x, out, wt, wt_t, p, h, w, s, axis, careful, ep,
-                           st);
-    case 4:
-      return launch_dct<4>(x, out, wt, wt_t, p, h, w, s, axis, careful, ep,
-                           st);
-    default:
-      return -1;
+  switch (s) {
+    case 2: return launch_dct2d_lanes<2>(lanes, x, out, wt_t, p, h, w,
+                                         careful, ep, st);
+    case 4: return launch_dct2d_lanes<4>(lanes, x, out, wt_t, p, h, w,
+                                         careful, ep, st);
+    case 8: return launch_dct2d_lanes<8>(lanes, x, out, wt_t, p, h, w,
+                                         careful, ep, st);
+    case 16: return launch_dct2d_lanes<16>(lanes, x, out, wt_t, p, h, w,
+                                           careful, ep, st);
+    case 32: return launch_dct2d_lanes<32>(lanes, x, out, wt_t, p, h, w,
+                                           careful, ep, st);
+    case 64: return launch_dct2d_lanes<64>(lanes, x, out, wt_t, p, h, w,
+                                           careful, ep, st);
+    case 128: return launch_dct2d_lanes<128>(lanes, x, out, wt_t, p, h, w,
+                                             careful, ep, st);
+    default: return -1;
   }
 }

@@ -13,8 +13,9 @@ Stages follow the reference preprocessing + Canny pipeline
   5. thresholds = 10th/30th percentile of the filtered image
   6. Canny: Sobel aperture 3, L2 gradient, NMS, hysteresis
 
-The 256-bin histograms (CLAHE tiles, percentiles) and the CLAHE LUT
-application run through the kernels of ops/kernels.py.  Output is float32
+The 256-bin histograms (CLAHE tiles, percentiles), the CLAHE LUT
+application and the bilateral filter's taps run through the kernels of
+ops/kernels.py.  Output is float32
 {0, 1}.
 """
 
@@ -25,8 +26,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .kernels import (clahe_apply_gather, clahe_gather_supported,
-                      clahe_lut_apply, histogram256)
+from .dfloat import expf_xla
+from .kernels import (bilateral, clahe_apply_gather,
+                      clahe_gather_supported, clahe_lut_apply, histogram256)
 
 
 # --------------------------------------------------------------- uint8 cast
@@ -237,13 +239,23 @@ def gaussian_blur_u8(img_u8: torch.Tensor, ksize: int = 3) -> torch.Tensor:
 
 
 # ---------------------------------------------------------- bilateral filter
-def bilateral_u8(img_u8: torch.Tensor, d: int = 5, sigma_color: float = 75.0,
-                 sigma_space: float = 75.0) -> torch.Tensor:
-    """OpenCV bilateralFilter for uint8 single-channel planes: radius d//2,
-    space weights exp(-r^2/(2 sc^2)) over the disk r <= radius, color
-    weights exp(-diff^2/(2 scol^2)), float accumulation, round-half-away."""
+@functools.lru_cache(maxsize=None)
+def _color_weights(sigma_color: float, device: torch.device) -> torch.Tensor:
+    """The bilateral's colour weights by |d|, d the difference of two uint8
+    pixels: XLA's exp(f32(d * d) * cc) (dfloat.expf_xla), a table so that
+    the CPU and the card give its bits (torch.exp gives neither)."""
+    cc = float(np.float32(-0.5 / (sigma_color * sigma_color)))
+    d = torch.arange(256, dtype=torch.float32)
+    return expf_xla(d * d * cc).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _bilateral_taps(d: int, sigma_color: float, sigma_space: float,
+                    device: torch.device):
+    """The disk's taps in the reference's order: (taps, 2) int32 offsets
+    (dy, dx) and (taps, 256) float32 weights f32(s_w * colour weight) by
+    |d|, the products the reference rounds, on `device`."""
     radius = d // 2
-    gauss_color_coeff = -0.5 / (sigma_color * sigma_color)
     gauss_space_coeff = -0.5 / (sigma_space * sigma_space)
     offs, sw = [], []
     for dy in range(-radius, radius + 1):
@@ -253,22 +265,31 @@ def bilateral_u8(img_u8: torch.Tensor, d: int = 5, sigma_color: float = 75.0,
                 continue
             offs.append((dy, dx))
             sw.append(math.exp(rr * rr * gauss_space_coeff))
+    sw = torch.tensor(np.asarray(sw, np.float32))
+    weights = sw[:, None] * _color_weights(sigma_color, torch.device("cpu"))
+    if bool(((weights != 0) & (weights < 2.0 ** -17)).any()):
+        raise ValueError(f"bilateral: sigma_color={sigma_color} makes "
+                         "colour weights below 2**-17")
+    return (torch.tensor(offs, dtype=torch.int32, device=device),
+            weights.to(device))
 
-    h, w = img_u8.shape[-2:]
+
+def bilateral_u8(img_u8: torch.Tensor, d: int = 5, sigma_color: float = 75.0,
+                 sigma_space: float = 75.0) -> torch.Tensor:
+    """OpenCV bilateralFilter for uint8 single-channel planes: radius d//2,
+    space weights exp(-r^2/(2 sc^2)) over the disk r <= radius, color
+    weights exp(-diff^2/(2 scol^2)), float accumulation, round-half-away.
+
+    Rounded as XLA compiles the JAX package's loop for the CPU: the weights
+    are s_w * exp(...) with XLA's exp; the numerator starts as
+    fma(w0, nb0, w1 * nb1) (LLVM fuses the first product of an add of two)
+    and takes each further tap as fma(w, nb, num); the denominator adds
+    the rounded weights.  The taps run in kernels.bilateral."""
+    radius = d // 2
+    offs, weights = _bilateral_taps(d, float(sigma_color), float(sigma_space),
+                                    img_u8.device)
     padded = _reflect101_pad(img_u8, radius, radius, radius, radius)
-    center = img_u8.to(torch.float32)
-    num = torch.zeros_like(center)
-    den = torch.zeros_like(center)
-    cc = float(np.float32(gauss_color_coeff))
-    for (dy, dx), s_w in zip(offs, sw):
-        nb = padded[..., dy + radius:dy + radius + h,
-                    dx + radius:dx + radius + w].to(torch.float32)
-        diff = nb - center
-        wgt = float(np.float32(s_w)) * torch.exp(diff * diff * cc)
-        num = num + wgt * nb
-        den = den + wgt
-    out = num / den
-    return torch.clamp(torch.floor(out + 0.5), 0, 255).to(torch.uint8)
+    return bilateral(padded.contiguous(), weights, offs, radius)
 
 
 # ------------------------------------------------------------------- sobel

@@ -10,13 +10,13 @@ The reference's two einsums per direction compile on the CPU to two 2-D
 dots (M, s) @ (s, s), M the number of block rows (all elements / s),
 whose products XLA sums in an order that depends on M and s
 (ops/xla_dot.py).  Each pass here is one of those dots: a dense periodic
-band (period s, one block of s inputs per output) summed by
-`kernels.dct_pass` in that order, with XLA's flush-to-zero, on the card by
-the CUDA kernel and on the CPU by its plain version, which give the same
-bits.  The intermediate between the passes is float32, as XLA rounds it
-between its dots.  No matmul library takes part.
+band (period s, one block of s inputs per output) summed in that order,
+with XLA's flush-to-zero, by `kernels.dct2d`: both passes in one launch on
+the card (the CUDA kernel), two passes of the plain version on the CPU,
+which give the same bits.  The intermediate between the passes is
+float32, as XLA rounds it between its dots.  No matmul library takes part.
 
-Each pass reads the blocks where they lie: the first contracts axis 1 of a
+The passes read the blocks where they lie: the first contracts axis 1 of a
 (P, H, W) tensor in windows of s rows, the second axis 2 in windows of s
 columns, so dense planes (P, ph, pw) and gathered blocks (N, s, s) take the
 same kernel without a copy.  A per-block call and a dense call give the
@@ -62,11 +62,9 @@ def _passes(x: torch.Tensor, size: int, inverse: bool, m: Optional[int],
             **epilogue) -> torch.Tensor:
     """Both passes over a contiguous (P, H, W) float32 tensor whose axes 1
     and 2 are whole numbers of blocks; m: the dots' rows (default: all
-    elements / size); the epilogue as kernels.dct_pass takes it."""
+    elements / size); the epilogue as kernels.dct2d takes it."""
     m = m or x.numel() // size
-    b = band(size, m, inverse, x.device)
-    y = kernels.dct_pass(x, b, 1)
-    return kernels.dct_pass(y, b, 2, **epilogue)
+    return kernels.dct2d(x, band(size, m, inverse, x.device), **epilogue)
 
 
 def _capacity_rows(n_blocks: int, size: int, capacity: Optional[int]):
@@ -125,7 +123,7 @@ def idct2_planes(planes: torch.Tensor, size: int, add=None,
     (P, ph, pw) reconstructions, with the decoder's epilogue as the
     reference's jit fuses it: `add` (P, ph, pw) added first (add + y),
     then affine=(rcp, mid, group): fma(y, rcp[l], mid[l]) for plane p of
-    layer l = (p // group) % L (kernels.dct_pass)."""
+    layer l = (p // group) % L (kernels.dct2d)."""
     return _passes(planes.contiguous(), size, True, None, add=add,
                    affine=affine)
 

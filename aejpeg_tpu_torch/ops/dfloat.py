@@ -24,8 +24,9 @@ of the JAX functions (tests/test_torch_color.py checks the result):
   its third (al*bh, added to the running sum) in most kernels, but not in
   all (`partials_unfused`).
 
-`logf_xla` is the natural logarithm XLA inlines for `jnp.log` on the CPU
-(Cephes' polynomial, with the FMAs of its compiled form).  Functions take
+`logf_xla` and `expf_xla` are the natural logarithm and exponential XLA
+inlines for `jnp.log` and `jnp.exp` on the CPU (Cephes' polynomials, with
+the FMAs of their compiled form).  Functions take
 and return (hi, lo) tuples of same-shape float32 tensors; a constant pair
 is two Python floats equal to float32 values (a float32 tensor meets such
 a float in float32 arithmetic on both devices).
@@ -250,6 +251,34 @@ def logf_xla(x: torch.Tensor) -> torch.Tensor:
     out = torch.where(x == 0, -torch.inf, out)
     out = torch.where(x == torch.inf, torch.inf, out)
     return torch.where((x < 0) | torch.isnan(x), torch.nan, out)
+
+
+# Cephes' exp polynomial, as XLA's CPU backend inlines it for jnp.exp.
+_EXP_LO = float(np.float32(float.fromhex("-0x1.5f3334p+6")))    # -87.8
+_EXP_HI = float(np.float32(float.fromhex("0x1.633334p+6")))     # 88.8
+_LOG2E = float(np.float32(float.fromhex("0x1.715476p+0")))
+_EXP_C1 = 0.693359375
+_EXP_C2 = float(np.float32(float.fromhex("-0x1.bd0106p-13")))
+_EXP_P = tuple(float(np.float32(float.fromhex(h))) for h in (
+    "0x1.a0d2cep-13", "0x1.6e879cp-10", "0x1.111210p-7", "0x1.555382p-5",
+    "0x1.555554p-3", "0x1p-1"))
+
+
+def expf_xla(x: torch.Tensor) -> torch.Tensor:
+    """jnp.exp of float32 as XLA compiles it for the CPU: x clamped to
+    [-87.8, 88.8], n = floor(x log2(e) + 1/2) in [-127, 127], r = x - n ln2
+    in two parts, 1 + r + r**2 p(r) with an order-5 polynomial, times 2**n
+    from exponent bits; every product that feeds one add fused (read off
+    the object code of the fused bilateral filter)."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.floor(fma32_exact(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = fma32_exact(n, -_EXP_C1, x)
+    r = fma32_exact(n, -_EXP_C2, r)
+    p = fma32_exact(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        p = fma32_exact(p, r, c)
+    y = fma32_exact(p, r * r, r) + 1.0
+    return y * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
 def df_log(a: DF) -> DF:

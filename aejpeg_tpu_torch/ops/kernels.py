@@ -12,15 +12,21 @@ Counterpart of the JAX package's ops/pallas_kernels.py:
   u8_to_unit          <- u8_to_unit_lut (_u8_lut_2d, _u8_lut_kernel)
                          csrc/u8_to_unit.cu
 
+the port's own bilateral filter, which has no Pallas counterpart (the
+reference's 13-tap loop, ops/canny.py bilateral_u8):
+
+  bilateral           <- bilateral_u8's taps: csrc/bilateral.cu
+
 and one kernel source of the port's own, which has no Pallas counterpart
 (the reference's einsums summed in XLA's CPU order, ops/xla_dot.py), with
 two entry points:
 
   banded_resize       <- the dense resize's two einsums (ops/resize.py)
                          csrc/banded_resize.cu
-  dct_pass            <- the DCT's einsums (ops/dct.py), with stage B's
-                         quantize or stage D's sum and denormalize as
-                         epilogues: csrc/banded_resize.cu
+  dct2d               <- the DCT's einsums (ops/dct.py), both passes in
+                         one launch, with stage B's quantize or stage D's
+                         sum and denormalize as epilogues:
+                         csrc/banded_resize.cu
 
 Each wrapper checks dtype, shape, contiguity and device.  Given CPU tensors
 it runs the plain version; given CUDA tensors it launches the kernel on the
@@ -69,7 +75,8 @@ LAUNCHES = {"histogram256": LaunchCounter(),
             "clahe_lut_apply": LaunchCounter(),
             "u8_to_unit": LaunchCounter(),
             "banded_resize": LaunchCounter(),
-            "dct_pass": LaunchCounter()}
+            "dct2d": LaunchCounter(),
+            "bilateral": LaunchCounter()}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -81,9 +88,10 @@ _SIGNATURES = {
     "aej_clahe_lut_apply": ("clahe_apply.cu", [_VP] * 6 + [_I] * 5 + [_VP]),
     "aej_u8_to_unit": ("u8_to_unit.cu", [_VP, _VP, _VP, _LL, _VP]),
     "aej_banded_resize": ("banded_resize.cu", [_VP] * 8 + [_I] * 11 + [_VP]),
-    "aej_dct_pass": ("banded_resize.cu",
-                     [_VP] * 4 + [_I] * 7 + [_VP, _VP, _I, _I, _VP, _I]
-                     + [_VP] * 3 + [_I, _I, _VP]),
+    "aej_dct2d": ("banded_resize.cu",
+                  [_VP] * 3 + [_I] * 6 + [_VP, _VP, _I, _I, _VP, _I]
+                  + [_VP] * 3 + [_I, _I, _VP]),
+    "aej_bilateral": ("bilateral.cu", [_VP] * 4 + [_I] * 5 + [_VP]),
 }
 _FNS = {}
 _FNS_LOCK = threading.Lock()
@@ -328,6 +336,73 @@ def u8_to_unit(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# ------------------------------------------------------- bilateral filter
+
+
+def bilateral_plain(padded: torch.Tensor, weights: torch.Tensor,
+                    offsets, radius: int) -> torch.Tensor:
+    """Plain version of bilateral (offsets as (dy, dx) pairs)."""
+    h = padded.shape[-2] - 2 * radius
+    w = padded.shape[-1] - 2 * radius
+    center = padded[..., radius:radius + h, radius:radius + w].to(
+        torch.int32)
+
+    def tap(i):
+        dy, dx = offsets[i]
+        nb = padded[..., dy + radius:dy + radius + h,
+                    dx + radius:dx + radius + w].to(torch.int32)
+        return weights[i][(nb - center).abs().long()], nb.to(torch.float32)
+
+    w0, nb0 = tap(0)
+    if len(offsets) == 1:
+        num, den = w0 * nb0, w0
+    else:
+        w1, nb1 = tap(1)
+        num = fma32(w0, nb0, w1 * nb1)
+        den = w0 + w1
+    for i in range(2, len(offsets)):
+        wgt, nb = tap(i)
+        num = fma32(wgt, nb, num)
+        den = den + wgt
+    out = num / den
+    return torch.clamp(torch.floor(out + 0.5), 0, 255).to(torch.uint8)
+
+
+def bilateral(padded: torch.Tensor, weights: torch.Tensor,
+              offsets: torch.Tensor, radius: int) -> torch.Tensor:
+    """The bilateral filter's taps over (P, H + 2 radius, W + 2 radius)
+    uint8 planes padded BORDER_REFLECT_101 -> (P, H, W) uint8.  weights:
+    (taps, 256) float32, tap t's weight by |d| (its nonzero entries at
+    least 2**-17, so that the kernel's FMA and the plain version's fma32
+    round the same exact value); offsets: (taps, 2) int32 (dy, dx), in the
+    reference's order.  Per pixel: num = fma(w0, nb0, w1 * nb1), then
+    fma(w, nb, num) per further tap; den the sum of the weights in order;
+    floor(num / den + 0.5) clamped to [0, 255] (ops/canny.bilateral_u8)."""
+    if padded.dim() != 3 or weights.dim() != 2 or offsets.dim() != 2:
+        raise ValueError("bilateral: expected (P, H, W) planes, (taps, 256) "
+                         "weights and (taps, 2) offsets")
+    taps = weights.shape[0]
+    p, ph, pw = padded.shape
+    dev = padded.device
+    _check("bilateral", padded, torch.uint8, padded.shape, dev)
+    _check("bilateral", weights, torch.float32, (taps, 256), dev)
+    _check("bilateral", offsets, torch.int32, (taps, 2), dev)
+    h, w = ph - 2 * radius, pw - 2 * radius
+    if taps < 1 or h < 1 or w < 1:
+        raise ValueError(f"bilateral: {taps} taps on planes of {h}x{w}")
+    if not _route("bilateral", dev):
+        return bilateral_plain(padded, weights, offsets.tolist(), radius)
+    if taps > 29 or radius > 3:
+        raise ValueError("bilateral: at most 29 taps of radius 3")
+    out = torch.empty((p, h, w), dtype=torch.uint8, device=dev)
+    if out.numel():
+        _launch("aej_bilateral", dev, padded.data_ptr(), out.data_ptr(),
+                weights.data_ptr(), offsets.data_ptr(), p, h, w, taps,
+                radius)
+        LAUNCHES["bilateral"].add()
+    return out
+
+
 # ------------------------------------------- XLA-ordered contractions
 #
 # Both entry points sum a contraction along axis 1 or 2 of a (P, H, W)
@@ -336,8 +411,8 @@ def u8_to_unit(x: torch.Tensor) -> torch.Tensor:
 # rounds once) added as a tree, the blocks added in order, then the tree
 # of the tail products; flushed to zero below 2**-126 as XLA's FTZ/DAZ
 # code is.  banded_resize sums a band of few taps per output (a resize);
-# dct_pass a dense periodic band (the DCT, one block of s inputs per
-# output), optionally quantizing its results.
+# dct2d a dense periodic band (the DCT, one block of s inputs per output)
+# along both axes, optionally quantizing its results.
 
 
 def _lane_tree(v):
@@ -564,7 +639,7 @@ def _dense_weights(band) -> torch.Tensor:
     """(period, src) weight matrix of a dense band, in k order."""
     lanes = band.dense_lanes()
     if lanes is None:
-        raise ValueError("dct_pass: the band is not dense")
+        raise ValueError("dct2d: the band is not dense")
     s, steps = band.period, band.steps
     slot = torch.arange(steps * lanes, device=band.weight.device)
     k = slot % steps * lanes + slot // steps       # slot c*steps+t -> k
@@ -594,8 +669,8 @@ def _dense(band):
 
 
 def dct_pass_plain(x: torch.Tensor, band, axis: int) -> torch.Tensor:
-    """Plain version of dct_pass without quantize: the dense periodic
-    band's sums, the taps taken as strided slices of every window at once
+    """One pass of dct2d_plain: the dense periodic band's sums along axis
+    1 or 2, the taps taken as strided slices of every window at once
     (k in XLA's lane order; each FMA rounded once, as `fma32_sum`, in
     place).  The
     flushes are skipped where no input can make a tiny product or sum
@@ -655,8 +730,8 @@ def _lane_tree_noflush(v):
 
 
 def _levels_plain(y, quant, s):
-    """quantize_plain of dct_pass's float results y (P, H, W), laid out as
-    dct_pass lays its levels."""
+    """quantize_plain of dct2d's float results y (P, H, W), laid out as
+    dct2d lays its levels."""
     hi, lo, group, zigzag, dtype = quant
     p, h, w = y.shape
     gh, gw = h // s, w // s
@@ -679,7 +754,7 @@ def _zigzag_positions(s: int, device: torch.device) -> torch.Tensor:
 
 
 def _post_plain(y, add, affine):
-    """dct_pass's float epilogue: y = add + y, then fma(y, rcp, mid) per
+    """dct2d's float epilogue: y = add + y, then fma(y, rcp, mid) per
     plane (a product where mid is 0), each rounded once and flushed."""
     if add is not None:
         y = ftz(add + y)
@@ -696,26 +771,38 @@ def _post_plain(y, add, affine):
 
 
 def check_card_dense(lanes: int, s: int, numel: int) -> None:
-    """What the card's dct_pass takes: a dense band of 1, 2 or 4 lanes
-    whose period is a power of two of at most 128 (only then do its tiles
-    hold whole windows), on under 2**31 elements.  Raises ValueError for
+    """What the card's dct2d takes: a dense band of 1, 2 or 4 lanes whose
+    period is a power of two of at most 128 (only then is it one of the
+    kernel's block sizes), on under 2**31 elements.  Raises ValueError for
     anything else; the plain version takes any period."""
     if (lanes not in (1, 2, 4) or not 0 < s <= 128 or s & (s - 1)
             or numel >= 2 ** 31):
         raise ValueError(
-            "dct_pass on the card: a dense band of 1, 2 or 4 lanes whose "
+            "dct2d on the card: a dense band of 1, 2 or 4 lanes whose "
             "period is a power of two of at most 128, under 2**31 "
             f"elements; got {lanes} lanes, period {s}, {numel} elements")
 
 
-def dct_pass(x: torch.Tensor, band, axis: int, quant=None, add=None,
-             affine=None) -> torch.Tensor:
-    """One pass of the DCT: the dense periodic band along axis 1 or 2 of a
-    contiguous (P, H, W) float32 tensor whose axis is a whole number of
-    periods, bit for bit with the reference's einsum as XLA's CPU dot sums
-    it -> (P, H, W) float32.
+def dct2d_plain(x: torch.Tensor, band, quant=None, add=None,
+                affine=None):
+    """Plain version of dct2d: the two passes (dct_pass_plain along axis 1,
+    then axis 2, the float32 intermediate between them), then the
+    epilogue."""
+    y = dct_pass_plain(dct_pass_plain(x, band, 1), band, 2)
+    if quant is not None:
+        return _levels_plain(y, quant, band.period)
+    return _post_plain(y, add, affine)
 
-    On the second pass (axis 2) an epilogue may follow, as XLA fuses it:
+
+def dct2d(x: torch.Tensor, band, quant=None, add=None,
+          affine=None) -> torch.Tensor:
+    """Both passes of the DCT: the dense periodic band along axis 1, then
+    axis 2, of a contiguous (P, H, W) float32 tensor whose axes 1 and 2 are
+    whole numbers of periods (s x s blocks), bit for bit with the
+    reference's two einsums as XLA's CPU dots sum them, the intermediate
+    rounded to float32 between them -> (P, H, W) float32.
+
+    An epilogue may follow, as XLA fuses it:
     - quant=(hi, lo, group, zigzag, dtype) quantizes the results instead,
       as XLA's quantize does (quantize_plain), plane p with tables
       hi[(p // group) % L], lo[...] of (L, s, s): -> (P, gh * gw, s * s)
@@ -725,29 +812,20 @@ def dct_pass(x: torch.Tensor, band, axis: int, quant=None, add=None,
       then affine=(rcp, mid, group) of (L,) float32 maps plane p's results
       to fma(y, rcp[l], mid[l]), l = (p // group) % L (y * rcp[l] where
       mid[l] is 0): the decoder's canvas sum and denormalize."""
-    if axis not in (1, 2):
-        raise ValueError(f"dct_pass: axis must be 1 or 2, got {axis}")
-    _check("dct_pass", x, torch.float32, x.shape, x.device)
-    if x.dim() != 3 or x.shape[axis] % band.period:
-        raise ValueError("dct_pass: expected (P, H, W) with whole periods")
-    epilogue = quant is not None or add is not None or affine is not None
-    if epilogue and (axis != 2 or x.shape[1] % band.period):
-        raise ValueError("dct_pass: an epilogue on the second pass of whole "
-                         "blocks only")
-    if quant is not None and (add is not None or affine is not None):
-        raise ValueError("dct_pass: quantize or the float epilogue")
-    if add is not None:
-        _check("dct_pass", add, torch.float32, x.shape, x.device)
+    _check("dct2d", x, torch.float32, x.shape, x.device)
     s = band.period
-    if not _route("dct_pass", x.device):
-        y = dct_pass_plain(x, band, axis)
-        if quant is not None:
-            return _levels_plain(y, quant, s)
-        return _post_plain(y, add, affine)
+    if x.dim() != 3 or x.shape[1] % s or x.shape[2] % s:
+        raise ValueError("dct2d: expected (P, H, W) of whole blocks")
+    if quant is not None and (add is not None or affine is not None):
+        raise ValueError("dct2d: quantize or the float epilogue")
+    if add is not None:
+        _check("dct2d", add, torch.float32, x.shape, x.device)
+    if not _route("dct2d", x.device):
+        return dct2d_plain(x, band, quant, add, affine)
+    lanes, _, w_t, small_w = _dense(band)
+    check_card_dense(lanes, s, x.numel())
     x = _aligned(x)
     add = None if add is None else _aligned(add)
-    lanes, w, w_t, small_w = _dense(band)
-    check_card_dense(lanes, s, x.numel())
     p, h, wd = x.shape
     q_args = (0, 0, 1, 1, 0, 0)
     f_args = (0, 0, 0, 1, 1)
@@ -758,7 +836,7 @@ def dct_pass(x: torch.Tensor, band, axis: int, quant=None, add=None,
                                                                  1)
             if rcp is not None:
                 for t in (rcp, mid):
-                    _check("dct_pass", t, torch.float32, (rcp.shape[0],),
+                    _check("dct2d", t, torch.float32, (rcp.shape[0],),
                            x.device)
             f_args = (0 if add is None else add.data_ptr(),
                       0 if rcp is None else rcp.data_ptr(),
@@ -767,16 +845,15 @@ def dct_pass(x: torch.Tensor, band, axis: int, quant=None, add=None,
     else:
         hi, lo, group, zigzag, dtype = quant
         for t in (hi, lo):
-            _check("dct_pass", t, torch.float32, (t.shape[0], s, s),
-                   x.device)
+            _check("dct2d", t, torch.float32, (t.shape[0], s, s), x.device)
         out = torch.empty((p, (h // s) * (wd // s), s * s), dtype=dtype,
                           device=x.device)
         perm = _zigzag_positions(s, x.device).data_ptr() if zigzag else 0
         q_args = (hi.data_ptr(), lo.data_ptr(), int(group), hi.shape[0],
                   perm, 2 if dtype == torch.int32 else 1)
     if x.numel():
-        _launch("aej_dct_pass", x.device, x.data_ptr(), out.data_ptr(),
-                w.data_ptr(), w_t.data_ptr(), p, h, wd, s, axis, lanes,
-                small_w, *q_args, *f_args)
-        LAUNCHES["dct_pass"].add()
+        _launch("aej_dct2d", x.device, x.data_ptr(), out.data_ptr(),
+                w_t.data_ptr(), p, h, wd, s, lanes, small_w, *q_args,
+                *f_args)
+        LAUNCHES["dct2d"].add()
     return out

@@ -8,7 +8,7 @@ result depend on the order in which its products are summed.  The port
 reproduces that order (`xla_dot_order`) and describes each contraction as
 a `Band`: for every output, the non-zero taps laid out as XLA sums them.
 `ops/kernels.banded_resize` (CUDA kernel and plain version) sums a band;
-`ops/kernels.dct_pass` sums a dense periodic one, the DCT's.
+`ops/kernels.dct2d` sums a dense periodic one, the DCT's.
 
 Read off jaxlib 0.9.0 on an x86-64 CPU with AVX-512 (avx512f/dq/bw/vl,
 FMA): XLA's ynn_support.cc, YNNPACK's get_dot_kernel and the results of

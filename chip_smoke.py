@@ -23,7 +23,8 @@ Phases, each fatal on failure:
      encode_stream -> decode_stream on cuda with the bench config (YCoCg,
      q20-80, blocks 4-128, native sparse entropy coder): every blob
      decodes, PSNR > 25 dB, every kernel launched;
-  4. the card against the CPU on 2 images: stage A's planes, stage B's
+  4. the card against the CPU: the bilateral filter on 96 random uint8
+     planes; on 2 images, stage A's planes and edge levels, stage B's
      tables (the forward DCT with its quantize epilogue) and stage D's
      decoded pixels (the inverse DCT with its canvas-sum and denormalize
      epilogue, the upsample) bitwise equal, containers byte-identical; and
@@ -85,7 +86,7 @@ Phases, each fatal on failure:
      8 such images through encode_batch -> decode_batch on the card, at
      entropy levels 9 and -1 (containers byte-identical to the CPU Codec's
      and the CPU encode_batch's, decodes within 1e-5 of the CPU Codec's,
-     every kernel launched) (dct_pass at their padded planes, both
+     every kernel launched) (dct2d at their padded planes, both
      directions, s = 4 and the largest block that tiles them); the CLI's
      compress of a 64x64 PNG at its
      defaults (byte-identical to the CPU Codec); the sweep over a 96x128
@@ -103,11 +104,12 @@ reference's einsums summed in XLA's CPU order; no Pallas counterpart),
 through both its entry points, bitwise to their plain versions:
 banded_resize (the dense resize) at the shapes of decode's upsample in
 phase 3 (a 512x768 batch and two 200x300 images), at phase 18's odd and
-narrow shapes, and on planes at 2**-126; dct_pass (the DCTs) at the bench
-config's planes for every block size 4-128, forward with the quantize
-epilogue and inverse with the decoder's epilogue (the times the kernel
-line sums), at s = 2, at the Codec's per-block buckets (int32 levels),
-and on planes of tiny, subnormal, -0 and mixed-sign values.  Its library
+narrow shapes, and on planes at 2**-126; dct2d (both passes of the DCTs
+in one launch) at the bench config's planes for every block size 4-128,
+forward with the quantize epilogue and inverse with the decoder's
+epilogue (the times the kernel line sums), at every s 2-128 in both
+directions with every epilogue, at the Codec's per-block buckets (int32
+levels), and on planes of tiny, subnormal, -0 and mixed-sign values.  Its library
 time is the route each replaced: torch.matmul for the resize, cuBLAS
 products with the copies and the eager quantize or denormalize for the
 DCTs.
@@ -137,6 +139,7 @@ SMALL = (200, 300)        # CLAHE fallback (tile heights 50 and 25)
 QUALITY = (20, 80)
 BLOCKS = (4, 128)
 REPS = 25                 # kernel timing repetitions
+WARM_S = 20               # seconds of load before the kernels are timed
 BATCH_REPS = 5            # warm batches timed in phase 5
 SPACE_BATCH = 8           # images per colour space in phase 7
 SPACE_REPS = 3            # warm batches timed per space in phase 7
@@ -234,6 +237,31 @@ def cuda_ms(fn, reps=REPS):
     return a.elapsed_time(b) / reps
 
 
+def sm_clock():
+    """The card's SM clock now, as nvidia-smi reports it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()
+
+
+def warm_card(dev, seconds=WARM_S):
+    """float32 products on the card for `seconds`, so that the kernels are
+    timed at the clocks the card works at (on an H100 80GB HBM3 the same
+    kernel's time fell by up to a third over the first minutes of load).
+    Logs the SM clock before and after."""
+    import torch
+    before = sm_clock()
+    a = torch.rand((4096, 4096), device=dev)
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        for _ in range(20):
+            b = torch.mm(a, a)
+        torch.cuda.synchronize(dev)
+    del b
+    log(f"  card warmed {seconds} s: SM clock {before} -> {sm_clock()}")
+
+
 def _dev_us(e):
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0.0))
@@ -241,22 +269,32 @@ def _dev_us(e):
 
 def device_ms(fn, kernel, reps=REPS):
     """Device time of one fn() in the kernel named `kernel`: torch.profiler
-    over `reps` back-to-back calls (as cuda_ms makes them), the device time
-    of the events whose name holds `kernel`, over `reps`.  None when the
-    trace holds no such kernel."""
+    over `reps` back-to-back calls (as cuda_ms makes them); per kernel
+    whose name holds `kernel`, its device time over the launches the trace
+    recorded (the profiler drops records now and then: dividing by `reps`
+    undercounted by up to a third), summed over those kernels (each
+    launches once a call).  A trace that holds no such kernel is taken
+    again, once; None when that one holds none either."""
     import torch
     from torch.profiler import ProfilerActivity
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(2):
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.key]
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.key]
+        if hits:
+            break
     if not hits:
         return None
-    return sum(_dev_us(e) for e in hits) / 1e3 / reps
+    counts = [e.count for e in hits]
+    if any(c != reps for c in counts):
+        log(f"    profiler: {counts} of {reps} launches of {kernel} recorded")
+    return sum(_dev_us(e) / max(e.count, 1) for e in hits) / 1e3
 
 
 # ------------------------------------------------------------------ phase 2
@@ -276,7 +314,7 @@ def kernel_cases(dev):
     g = torch.Generator(device="cpu").manual_seed(0)
     cases = {"histogram256": [], "clahe_apply_gather": [],
              "clahe_lut_apply": [], "u8_to_unit": [], "banded_resize": [],
-             "dct_pass": []}
+             "dct2d": [], "bilateral": []}
 
     def ints(*shape):
         return torch.randint(0, 256, shape, generator=g,
@@ -387,7 +425,26 @@ def kernel_cases(dev):
             cases["banded_resize"].append(
                 _banded_case(p, inp, axis, dst[axis - 1], kind, on_path,
                              " at 2**-126" if tiny else ""))
-    cases["dct_pass"] = dct_cases(dev, g)
+    cases["dct2d"] = dct_cases(dev, g)
+    # the Canny stack's planes as phase 3 sends them (luma and chroma of
+    # both batches), then an odd and a tiny shape; bytes: the padded planes
+    # read once, the output written once; ops: 3 FP32 operations a tap (the
+    # FMA's two, the denominator's add) and 3 a pixel
+    offs, weights = canny._bilateral_taps(5, 75.0, 75.0, dev)
+    taps = offs.shape[0]
+    for p, h, w, on_path in ((BATCH, H, W, True),
+                             (2 * BATCH, H // 2, W // 2, True),
+                             (2, *SMALL, True),
+                             (4, SMALL[0] // 2, SMALL[1] // 2, True),
+                             (3, 37, 53, False), (2, 3, 4, False)):
+        padded = canny._reflect101_pad(bytes_(p, h, w), 2, 2, 2,
+                                       2).contiguous()
+        cases["bilateral"].append(
+            (f"({p}, {h}, {w})", (padded,),
+             lambda x: K.bilateral_plain(x, weights, offs.tolist(), 2),
+             lambda x: K.bilateral(x, weights, offs, 2), None,
+             padded.numel() + p * h * w + weights.numel() * 4,
+             (3 * taps + 3) * p * h * w, on_path))
     return cases
 
 
@@ -406,7 +463,8 @@ def _quant_tables(s, layers, dev):
 
 
 def _old_dct_route(x, s, hi, lo, inverse=False, add=None):
-    """The route the DCTs took before dct_pass, timed as the library call:
+    """The route the DCTs took before the port's own DCT kernel, timed as
+    the library call:
     cuBLAS products (torch.mm on the blocks' rows, with the .mT and
     permute copies, forward; torch.matmul on the (s, gw * s) slabs,
     inverse), then the eager quantize, int16 cast and zigzag gather
@@ -432,44 +490,58 @@ def _old_dct_route(x, s, hi, lo, inverse=False, add=None):
 
 
 def dct_cases(dev, g):
-    """dct_pass entries: each DCT direction's two passes as the main path
-    calls them.  On the path: stage B's forward with the quantize epilogue
-    (int16 zigzag rows) and stage D's inverse with the canvas-sum and
-    denormalize epilogue, at the bench config's planes (luma (42, 512,
-    768), chroma (84, 256, 384)) for every block size 4-128.  Off the
-    path: s = 2, the Codec's per-block buckets (64 blocks, int32 levels),
-    and planes of tiny, subnormal, -0 and mixed-sign values (the
-    flushes).  bytes: the input read, the float32 intermediate written and
-    read, the output written (and the addend read); ops: 2 flops per tap,
-    s taps per output per pass."""
+    """dct2d entries.  On the path: stage B's forward with the quantize
+    epilogue (int16 zigzag rows) and stage D's inverse with the canvas-sum
+    and denormalize epilogue, at the bench config's planes (luma (42, 512,
+    768), chroma (84, 256, 384)) for every block size 4-128, through the
+    path's entry points.  Off the path, on small planes (partial tiles) at
+    every s 2-128, both directions, every epilogue: float results, int16
+    zigzag levels, int32 levels in raster order over two layers' tables,
+    the sum alone, the sum and the denormalize (mid 0 and not); the
+    Codec's per-block buckets (64 blocks, int32 levels); planes of tiny,
+    subnormal, -0 and mixed-sign values (the flushes) at every s, and of
+    NaNs and infinities (levels, and floats with their NaN masks and
+    other bits); at every s, planes whose tiles make each persistent CTA
+    use both its buffers, with int16, int32 and float epilogues.  bytes:
+    each input read once, each output written once (the float32
+    intermediate never leaves the chip); ops: 2 flops per tap, s taps per
+    output per pass."""
     import torch
     from aejpeg_tpu_torch.ops import dct, kernels as K
     out = []
 
-    def fwd(s, group=1, dtype=torch.int16, capacity=None):
-        def kern(x, hi, lo):
-            return dct.dct2_quantize(x, s, hi, lo, group=group, dtype=dtype,
-                                     capacity=capacity)
+    def entry(label, x, s, inverse, ep=None, m=None, add=None, lib=None,
+              on_path=False, via=None, one_nan=False):
+        """One case: K.dct2d (or `via`, the path's entry point) against
+        K.dct2d_plain on x (and the addend).  one_nan: every NaN of both
+        results is made the same NaN first, so that the check compares the
+        NaN masks and every other bit, and not the NaN payloads."""
+        ep = dict(ep or {})
+        b = dct.band(s, m or x.numel() // s, inverse, dev)
+        args = (x,) if add is None else (x, add)
 
-        def plain(x, hi, lo):
-            m = (capacity * s if capacity else x.numel() // s)
-            b = dct.band(s, m, False, x.device)
-            y = K.dct_pass_plain(K.dct_pass_plain(x, b, 1), b, 2)
-            return K._levels_plain(y, (hi, lo, group, True, dtype), s)
-        return kern, plain
+        def epi(a):
+            return ep if len(a) == 1 else dict(ep, add=a[1])
 
-    def inv(s, rcp, mid):
-        def kern(x, add):
-            return dct.idct2_planes(x, s, add=add, affine=(rcp, mid, 1))
+        def nan_(y):
+            return (torch.where(torch.isnan(y), float("nan"), y) if one_nan
+                    else y)
 
-        def plain(x, add):
-            b = dct.band(s, x.numel() // s, True, x.device)
-            y = K.dct_pass_plain(K.dct_pass_plain(x, b, 1), b, 2)
-            return K._post_plain(y, add, (rcp, mid, 1))
-        return kern, plain
+        def kern(*a):
+            return nan_(via(*a) if via else K.dct2d(a[0], b, **epi(a)))
+
+        def plain(*a):
+            return nan_(K.dct2d_plain(a[0], b, **epi(a)))
+        kern.spec = (b, ep)     # for tools/probe_contract.py's other routes
+        quant = ep.get("quant")
+        out_bytes = (x.numel() * quant[4].itemsize if quant
+                     else x.numel() * 4)
+        tables = 2 * quant[0].numel() * 4 if quant else 0
+        nbytes = x.numel() * 4 * len(args) + out_bytes + tables
+        out.append((label, args, plain, kern, lib, nbytes,
+                    4 * s * x.numel(), on_path))
 
     for p, h, w, layers in ((BATCH, H, W, 1), (2 * BATCH, H // 2, W // 2, 2)):
-        n = p * h * w
         x = ((torch.rand((p, h, w), generator=g) - 0.5) * 200).to(dev)
         canvas = ((torch.rand((p, h, w), generator=g) - 0.5) * 50).to(dev)
         rcp = torch.tensor([1 / 1.25, 1 / 1.5][:layers], device=dev)
@@ -478,54 +550,116 @@ def dct_cases(dev, g):
             if h % s or w % s:
                 continue
             hi, lo, q = _quant_tables(s, layers, dev)
-            kern, plain = fwd(s)
-            out.append((f"forward + quantize ({p}, {h}, {w}) s={s}",
-                        (x, hi, lo), plain, kern,
-                        lambda x=x, s=s, hi=hi, lo=lo: _old_dct_route(
-                            x, s, hi, lo),
-                        n * 14, 4 * s * n, True))
+            entry(f"forward + quantize ({p}, {h}, {w}) s={s}", x, s, False,
+                  {"quant": (hi, lo, 1, True, torch.int16)},
+                  lib=lambda x=x, s=s, hi=hi, lo=lo: _old_dct_route(
+                      x, s, hi, lo),
+                  on_path=True,
+                  via=lambda x, s=s, hi=hi, lo=lo: dct.dct2_quantize(
+                      x, s, hi, lo))
             coef = (torch.round(x / 8) * 8).contiguous()
-            kern, plain = inv(s, rcp, mid)
-            out.append((f"inverse + sum, denormalize ({p}, {h}, {w}) s={s}",
-                        (coef, canvas), plain, kern,
-                        lambda c=coef, s=s, a=canvas: _old_dct_route(
-                            c, s, None, None, inverse=True, add=a),
-                        n * 20, 4 * s * n, True))
-    x2 = ((torch.rand((3, 64, 96), generator=g) - 0.5) * 200).to(dev)
-    hi, lo, q = _quant_tables(2, 1, dev)
-    kern, plain = fwd(2)
-    out.append(("forward + quantize (3, 64, 96) s=2", (x2, hi, lo), plain,
-                kern, None, x2.numel() * 14, 8 * x2.numel(), False))
-    for s in (4, 8, 16, 32, 64, 128):
-        blocks = ((torch.rand((45, s, s), generator=g) - 0.5) * 200).to(dev)
-        hi, lo, q = _quant_tables(s, 1, dev)
-        kern, plain = fwd(s, dtype=torch.int32, capacity=64)
-        out.append((f"Codec bucket (45 of 64, {s}, {s}) int32",
-                    (blocks, hi, lo), plain, kern, None,
-                    blocks.numel() * 16, 4 * s * blocks.numel(), False))
-    for s in (8, 32):
-        hi, lo, q = _quant_tables(s, 1, dev)
-        for name, v in _special_dct_planes((2, 64, 64), s).items():
+            entry(f"inverse + sum, denormalize ({p}, {h}, {w}) s={s}", coef,
+                  s, True, {"affine": (rcp, mid, 1)}, add=canvas,
+                  lib=lambda c=coef, s=s, a=canvas: _old_dct_route(
+                      c, s, None, None, inverse=True, add=a),
+                  on_path=True,
+                  via=lambda c, a, s=s, r=rcp, m=mid: dct.idct2_planes(
+                      c, s, add=a, affine=(r, m, 1)))
+    for s in (2, 4, 8, 16, 32, 64, 128):
+        side = max(s, 32)
+        x = ((torch.rand((3, 2 * side, 3 * side), generator=g) - 0.5)
+             * 200).to(dev)
+        add = ((torch.rand(x.shape, generator=g) - 0.5) * 50).to(dev)
+        hi, lo, _ = _quant_tables(s, 1, dev)
+        hi2, lo2, _ = _quant_tables(s, 2, dev)
+        rcp = torch.tensor([1 / 1.25, 1 / 1.5], device=dev)
+        mid = torch.tensor([0.5, 0.0], device=dev)
+        shape = tuple(x.shape)
+        for inverse in (False, True):
+            d = "inverse" if inverse else "forward"
+            entry(f"{d} {shape} s={s}", x, s, inverse)
+            entry(f"{d} + int16 zigzag levels {shape} s={s}", x, s, inverse,
+                  {"quant": (hi, lo, 1, True, torch.int16)})
+            entry(f"{d} + int32 raster levels, 2 layers {shape} s={s}", x,
+                  s, inverse, {"quant": (hi2, lo2, 2, False, torch.int32)})
+            entry(f"{d} + sum {shape} s={s}", x, s, inverse, add=add)
+            entry(f"{d} + sum, denormalize (2 layers) {shape} s={s}", x, s,
+                  inverse, {"affine": (rcp, mid, 1)}, add=add)
+        for name, v in _special_dct_planes((2, 2 * side, 2 * side),
+                                           s).items():
             xs = v.to(dev)
-            rcp = torch.tensor([1 / 1.25], device=dev)
-            mid = torch.tensor([0.5], device=dev)
-            kern, plain = inv(s, rcp, mid)
-            out.append((f"inverse, {name} planes (2, 64, 64) s={s}",
-                        (xs, xs), plain, kern, None, xs.numel() * 20,
-                        4 * s * xs.numel(), False))
-            b = dct.band(s, xs.numel() // s, False, dev)
-            out.append((f"forward, {name} planes (2, 64, 64) s={s}", (xs,),
-                        lambda x, b=b: K.dct_pass_plain(
-                            K.dct_pass_plain(x, b, 1), b, 2),
-                        lambda x, s=s: dct.dct2_dense(x, s).reshape(
-                            x.shape), None, xs.numel() * 16,
-                        4 * s * xs.numel(), False))
+            for inverse in (False, True):
+                d = "inverse" if inverse else "forward"
+                if name == "non-finite":
+                    # as levels (a NaN's level is 0), and as floats with
+                    # the NaNs at the same places: a NaN's payload is not
+                    # modelled, and the kernel's float32 FMAs and the plain
+                    # version's float64 steps give different ones
+                    entry(f"{d} + int16 levels, {name} planes s={s}", xs, s,
+                          inverse, {"quant": (hi, lo, 1, True, torch.int16)})
+                    entry(f"{d} + int32 levels, {name} planes s={s}", xs, s,
+                          inverse,
+                          {"quant": (hi2, lo2, 2, False, torch.int32)})
+                    entry(f"{d}, {name} planes (NaN masks and other bits) "
+                          f"s={s}", xs, s, inverse, one_nan=True)
+                    entry(f"{d} + sum, denormalize, {name} planes (NaN masks "
+                          f"and other bits) s={s}", xs, s, inverse,
+                          {"affine": (rcp[:1], mid[:1], 1)}, add=xs,
+                          one_nan=True)
+                    continue
+                entry(f"{d}, {name} planes {tuple(xs.shape)} s={s}", xs, s,
+                      inverse)
+                entry(f"{d} + sum, denormalize, {name} planes s={s}", xs, s,
+                      inverse, {"affine": (rcp[:1], mid[:1], 1)}, add=xs)
+        xt = _tiny_planes((3, 2 * side, 2 * side), g).to(dev)
+        entry(f"forward + int16 levels, 2**-126 planes s={s}", xt, s, False,
+              {"quant": (hi, lo, 1, True, torch.int16)})
+        entry(f"inverse, 2**-126 planes s={s}", xt, s, True)
+        if s >= 4:
+            blocks = ((torch.rand((45, s, s), generator=g) - 0.5)
+                      * 200).to(dev)
+            entry(f"Codec bucket (45 of 64, {s}, {s}) int32", blocks, s,
+                  False, {"quant": (hi, lo, 1, True, torch.int32)},
+                  m=64 * s,
+                  via=lambda b, s=s, hi=hi, lo=lo: dct.dct2_quantize(
+                      b, s, hi, lo, dtype=torch.int32, capacity=64))
+        # planes of more tiles than twice the most CTAs the card holds at
+        # once, so that every persistent CTA computes a tile in each of its
+        # two buffers (and writes its levels over a tile buffer twice)
+        threads, per_tile = DCT_GEO[s]
+        props = torch.cuda.get_device_properties(dev)
+        per_sm = max(1, min(32, getattr(
+            props, "max_threads_per_multi_processor", 2048) // threads))
+        most = props.multi_processor_count * per_sm
+        per_plane = (WALK_SIDE // s) ** 2 // per_tile
+        p = -(-2 * most // per_plane)
+        x = ((torch.rand((p, WALK_SIDE, WALK_SIDE), generator=g) - 0.5)
+             * 200).to(dev)
+        add = ((torch.rand(x.shape, generator=g) - 0.5) * 50).to(dev)
+        shape = tuple(x.shape)
+        walk = f"{p * per_plane} tiles, {most} CTAs at most"
+        entry(f"forward + int16 zigzag levels {shape} ({walk}) s={s}", x, s,
+              False, {"quant": (hi, lo, 1, True, torch.int16)})
+        entry(f"forward + int32 raster levels, 2 layers {shape} ({walk}) "
+              f"s={s}", x, s, False,
+              {"quant": (hi2, lo2, 2, False, torch.int32)})
+        entry(f"inverse + sum, denormalize (2 layers) {shape} ({walk}) "
+              f"s={s}", x, s, True, {"affine": (rcp, mid, 1)}, add=add)
     return out
+
+
+# dct2d's threads a CTA and blocks a tile per s (Geo<S> in
+# csrc/banded_resize.cu), and the side of the planes whose tiles outnumber
+# twice the CTAs the card holds
+DCT_GEO = {2: (128, 128), 4: (128, 128), 8: (128, 32), 16: (128, 8),
+           32: (128, 2), 64: (128, 1), 128: (512, 1)}
+WALK_SIDE = 512
 
 
 def _special_dct_planes(shape, seed):
     """Planes near 2**-126 with subnormal values, tiny negative ones
-    (products flushed to -0), and mixed signs with zeros of both signs."""
+    (products flushed to -0), mixed signs with zeros of both signs, and
+    random values with NaNs and infinities."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     tiny = 2.0 ** -126 * (1 + torch.rand(shape, generator=g))
@@ -534,7 +668,12 @@ def _special_dct_planes(shape, seed):
     mixed = neg.clone()
     mixed[:, ::2] *= -1
     mixed[:, 1::5] = -0.0
-    return {"tiny": tiny, "negative tiny": neg, "mixed": mixed}
+    nan = (torch.rand(shape, generator=g) - 0.5) * 200
+    nan[:, ::7, ::5] = float("nan")
+    nan[:, 3, 1::9] = float("inf")
+    nan[:, 5, 2::11] = -float("inf")
+    return {"tiny": tiny, "negative tiny": neg, "mixed": mixed,
+            "non-finite": nan}
 
 
 def _tiny_planes(shape, generator):
@@ -615,7 +754,7 @@ def check_kernels(dev, names=None, quick=False):
                     f"{name} {label}: kernel differs from its plain version "
                     f"(max abs {err})")
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            if quick:
+            if quick or not on_path:    # timed at the path's shapes only
                 log(f"  {name} {label}: bitwise equal")
                 continue
             ms = cuda_ms(lambda: kern(*args))
@@ -631,10 +770,7 @@ def check_kernels(dev, names=None, quick=False):
                 f" ms), plain {pms:.4f} ms, library "
                 f"{'-' if lms is None else f'{lms:.4f} ms'}, bound "
                 f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB: {bytes_ms:.4f} ms; "
-                f"{ops / 1e6:.1f} M ops: {ops_ms:.4f} ms)"
-                + ("" if on_path else "; not on the phase-3 path"))
-            if not on_path:
-                continue
+                f"{ops / 1e6:.1f} M ops: {ops_ms:.4f} ms)")
             tot["ms"] += ms
             tot["device_ms"] = (None if dms is None or tot["device_ms"] is None
                                 else tot["device_ms"] + dms)
@@ -645,13 +781,13 @@ def check_kernels(dev, names=None, quick=False):
             if lms is not None:
                 tot["library_ms"] += lms
         summary[name] = tot
-    if names is None or "dct_pass" in names:
+    if names is None or "dct2d" in names:
         check_card_rejects(dev)
     return summary
 
 
 def check_card_rejects(dev):
-    """dct_pass on the card takes only periods that are powers of two:
+    """dct2d on the card takes only periods that are powers of two:
     a DCT of blocks of 12 (which the CPU's plain version computes) raises
     ValueError there instead of reading past its tiles."""
     import torch
@@ -660,9 +796,9 @@ def check_card_rejects(dev):
     try:
         dct.dct2_dense(x, 12)
     except ValueError as e:
-        log(f"  dct_pass s=12 on the card: ValueError ({e})")
+        log(f"  dct2d s=12 on the card: ValueError ({e})")
     else:
-        raise AssertionError("dct_pass accepted a period of 12 on the card")
+        raise AssertionError("dct2d accepted a period of 12 on the card")
 
 
 # ------------------------------------------------------------------ phases 3-6
@@ -723,20 +859,32 @@ def main_path(cfg, big, small):
     return launches
 
 
+def bilateral_card_vs_cpu():
+    """Phase 4: the bilateral filter on 96 random 200x300 uint8 planes (the
+    planes that showed XLA's fused first product), bitwise card == CPU."""
+    import torch
+    from aejpeg_tpu_torch.ops import canny
+    rng = np.random.default_rng(0)
+    u8 = torch.from_numpy(rng.integers(0, 256, (96, 200, 300),
+                                       dtype=np.uint8))
+    if not torch.equal(canny.bilateral_u8(u8.cuda()).cpu(),
+                       canny.bilateral_u8(u8)):
+        raise AssertionError("cuda/cpu bilateral filters differ")
+    log("  bilateral filter on 96 random 200x300 uint8 planes bitwise equal "
+        "card == CPU")
+
+
 def card_vs_cpu(cfg, imgs, singles=True):
-    """Phase 4: the same images on cuda and on the CPU: packed edge-level
-    bits >= 99.9% equal (the tolerance of tests/test_torch_codec.py);
-    stage A's planes, stage B's tables (the DCT and quantize kernel) and
-    stage D's decoded pixels (the inverse DCT and upsample kernels)
-    bitwise equal; coefficients >= 99.99% equal with |d| <= 1 where the
-    state streams agree; then (singles) batch-vs-single container identity
-    on cuda."""
+    """Phase 4: the same images on cuda and on the CPU: stage A's planes
+    and packed edge levels, stage B's tables (the DCT and quantize kernel), the containers
+    and stage D's decoded pixels (the inverse DCT and upsample kernels)
+    bitwise equal; then (singles) batch-vs-single container identity on
+    cuda."""
     import torch
     import aejpeg_tpu_torch as at
     from aejpeg_tpu_torch.codec.batch_encode import (_host_batch, _stage_a,
                                                      _stage_b)
     from aejpeg_tpu_torch.codec.tables import device_tables, spec_for
-    from aejpeg_tpu_torch.io.container import ContainerReader
     host = torch.from_numpy(_host_batch(imgs))
     shape = imgs[0].original_shape[:2]
     spec = spec_for(cfg, shape)
@@ -758,32 +906,17 @@ def card_vs_cpu(cfg, imgs, singles=True):
                              f"{int((tab_gpu != tab_cpu).sum())} levels")
     log(f"  stage A planes and stage B tables ({tab_gpu.numel()} int16 "
         "levels) bitwise equal card == CPU")
-    bits_g = np.unpackbits(lv_gpu.numpy(), axis=1)
-    bits_c = np.unpackbits(lv_cpu.numpy(), axis=1)
-    agree = float((bits_g == bits_c).mean())
-    log(f"  packed edge-level bits: {agree:.6f} equal")
-    if agree < 0.999:
-        raise AssertionError("cuda/cpu edge levels out of tolerance")
+    if not torch.equal(lv_gpu, lv_cpu):
+        raise AssertionError("cuda/cpu edge levels differ: "
+                             f"{int((lv_gpu != lv_cpu).sum())} bytes")
+    log(f"  packed edge levels ({lv_gpu.numel()} bytes) bitwise equal "
+        "card == CPU")
     gpu = at.encode_batch(imgs, cfg)
     cpu = at.encode_batch(imgs, cfg, device="cpu")
-    for i, (a, b) in enumerate(zip(gpu, cpu)):
-        if a == b:
-            log(f"  image {i}: cuda and cpu containers byte-identical")
-            continue
-        ra, rb = ContainerReader(a), ContainerReader(b)
-        if ra.metadata != rb.metadata:
-            raise AssertionError("cuda/cpu metadata differ")
-        for li, (la, lb) in enumerate(zip(ra.read_layers(),
-                                          rb.read_layers())):
-            if la.states_bytes != lb.states_bytes:
-                log(f"  image {i} layer {li}: state streams differ")
-                continue
-            eq = float((la.coeffs == lb.coeffs).mean())
-            dmax = int(np.abs(la.coeffs.astype(np.int64) - lb.coeffs).max())
-            log(f"  image {i} layer {li}: coefficients {eq:.6f} equal, "
-                f"max |d| {dmax}")
-            if eq < 0.9999 or dmax > 1:
-                raise AssertionError("cuda/cpu coefficients out of tolerance")
+    if gpu != cpu:
+        raise AssertionError("cuda/cpu containers differ")
+    log(f"  containers byte-identical card == CPU "
+        f"({sum(map(len, gpu))} bytes)")
     dg = at.decode_batch(gpu)
     dc = at.decode_batch(gpu, device="cpu")
     for i, (a, b) in enumerate(zip(dg, dc)):
@@ -1666,6 +1799,12 @@ def small_kernel_cases(dev):
                             dtype=torch.uint8).to(dev)
         out.append(("u8_to_unit", f"(2, {h}, {w}, 3)", (rgb,),
                     K.u8_to_unit_plain, K.u8_to_unit))
+        offs, weights = canny._bilateral_taps(5, 75.0, 75.0, dev)
+        out.append(("bilateral", label,
+                    (canny._reflect101_pad(img, 2, 2, 2, 2).contiguous(),),
+                    lambda x, o=offs, wt=weights: K.bilateral_plain(
+                        x, wt, o.tolist(), 2),
+                    lambda x, o=offs, wt=weights: K.bilateral(x, wt, o, 2)))
         if h * w > 1:
             x = torch.rand((2, h, w), generator=g).to(dev)
             for axis, dst, kind in ((1, 2 * h, "linear"),
@@ -1693,14 +1832,14 @@ def small_kernel_cases(dev):
             q = (hi, lo, 1, True, torch.int16)
             rcp = torch.tensor([0.8], device=dev)
             mid = torch.tensor([0.5], device=dev)
-            out.append(("dct_pass", f"forward + quantize (3, {h}, {w}) "
+            out.append(("dct2d", f"forward + quantize (3, {h}, {w}) "
                         f"s={s}", (x,),
                         lambda x, b=b_f, q=q, s=s: K._levels_plain(
                             K.dct_pass_plain(K.dct_pass_plain(x, b, 1),
                                              b, 2), q, s),
                         lambda x, s=s, hi=hi, lo=lo: dct.dct2_quantize(
                             x, s, hi, lo)))
-            out.append(("dct_pass", f"inverse + sum, denormalize (3, {h}, "
+            out.append(("dct2d", f"inverse + sum, denormalize (3, {h}, "
                         f"{w}) s={s}", (x,),
                         lambda x, b=b_i, r=rcp, m=mid: K._post_plain(
                             K.dct_pass_plain(K.dct_pass_plain(x, b, 1),
@@ -1924,7 +2063,8 @@ KERNEL_NAMES = {"histogram256": "hist256_kernel",
                 "clahe_lut_apply": "clahe_lut_apply_kernel",
                 "u8_to_unit": "u8_to_unit_kernel",
                 "banded_resize": "banded_",
-                "dct_pass": "dct_"}
+                "dct2d": "dct2d_kernel",
+                "bilateral": "bilateral_kernel"}
 SOURCES = {"histogram256": ("aejpeg_tpu_torch/csrc/histogram256.cu",
                             "aejpeg_tpu/ops/pallas_kernels.py:76"),
            "clahe_apply_gather": ("aejpeg_tpu_torch/csrc/clahe_apply.cu",
@@ -1935,8 +2075,10 @@ SOURCES = {"histogram256": ("aejpeg_tpu_torch/csrc/histogram256.cu",
                           "aejpeg_tpu/ops/pallas_kernels.py:197"),
            "banded_resize": ("aejpeg_tpu_torch/csrc/banded_resize.cu",
                              "aejpeg_tpu/ops/resize.py:168"),
-           "dct_pass": ("aejpeg_tpu_torch/csrc/banded_resize.cu",
-                        "aejpeg_tpu/ops/dct.py:58")}
+           "dct2d": ("aejpeg_tpu_torch/csrc/banded_resize.cu",
+                     "aejpeg_tpu/ops/dct.py:58"),
+           "bilateral": ("aejpeg_tpu_torch/csrc/bilateral.cu",
+                         "aejpeg_tpu/ops/canny.py:221")}
 
 
 def main() -> int:
@@ -1969,6 +2111,7 @@ def main() -> int:
         raise RuntimeError("native host library did not build")
 
     log("[2] kernels against their plain versions on the card")
+    warm_card(dev)
     summary = check_kernels(dev)
 
     cfg = at.CodecConfig("YCoCg", QUALITY, BLOCKS, entropy_level=-1)
@@ -1979,6 +2122,7 @@ def main() -> int:
     launches = main_path(cfg, big, small)
 
     log("[4] card against CPU, 2 images; batch vs single on the card")
+    bilateral_card_vs_cpu()
     card_vs_cpu(cfg, big[:2])
 
     log(f"[5] times, {BATCH} x {H}x{W}, median of {BATCH_REPS} warm batches "

@@ -3,7 +3,8 @@ package's, on the CPU: every block size 2-128, dense planes and gathered
 blocks, odd plane counts, subnormal, tiny and -0 inputs (uint32 views).
 The reference's einsums compile to 2-D dots whose sums XLA orders by the
 dot's shape (ops/xla_dot.py); the port sums each pass in that order
-(ops/kernels.dct_pass, the plain version here)."""
+(ops/kernels.dct2d, both passes in one launch on the card; its plain
+version here)."""
 
 import jax
 import jax.numpy as jnp
@@ -194,6 +195,30 @@ def test_card_pass_rejects_other_periods(s):
     want = np.asarray(jax.jit(jdct.dct2_dense, static_argnums=1)(
         jnp.asarray(x.numpy()), s))
     _assert_bitwise(dct.dct2_dense(x, s).numpy(), want)
+
+
+def test_dct2d_rejects_what_the_card_cannot_take(monkeypatch):
+    """dct2d routed to the card (forced here on CPU tensors, the launch
+    recorded instead of made) raises ValueError before any launch for a
+    period that is not one of the kernel's block sizes and for planes that
+    are not whole blocks; a bench block size launches once."""
+    cpu = torch.device("cpu")
+    launched = []
+    monkeypatch.setattr(kernels, "_route", lambda name, device: True)
+    monkeypatch.setattr(kernels, "_launch", lambda *a: launched.append(a))
+    count = kernels.LAUNCHES["dct2d"].n
+    x = torch.zeros((2, 24, 36))
+    with pytest.raises(ValueError, match="power of two"):
+        kernels.dct2d(x, dct.band(12, x.numel() // 12, False, cpu))
+    x = torch.zeros((2, 16, 20))
+    with pytest.raises(ValueError, match="whole blocks"):
+        kernels.dct2d(x, dct.band(8, x.numel() // 8, False, cpu))
+    assert not launched
+    x = torch.zeros((2, 16, 24))
+    out = kernels.dct2d(x, dct.band(8, x.numel() // 8, True, cpu))
+    assert out.shape == x.shape and len(launched) == 1
+    assert launched[0][0] == "aej_dct2d"
+    assert kernels.LAUNCHES["dct2d"].n == count + 1
 
 
 @pytest.mark.parametrize("s", SIZES)
