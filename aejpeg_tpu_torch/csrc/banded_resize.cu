@@ -15,7 +15,12 @@
 // steps.  Every FMA is __fmaf_rn (one rounding) and every add __fadd_rn,
 // so kernel and plain version agree bit for bit.  Subnormal inputs read as
 // zero and subnormal results are flushed to a zero of their sign, as
-// XLA's MXCSR does.
+// XLA's MXCSR does.  An output whose band says 0 lanes sums one chain of
+// rounded products (no FMA), as XLA's last narrow column group of some
+// thin dots does; that step is built only into the kernels launched for
+// bands with such outputs (Band.unfused).  Where a result is NaN, the
+// kernels write the NaN XLA's dot passes on (nan_walk,
+// ops/kernels.nan_model): the card's own NaNs carry no payload.
 //
 // aej_banded_resize: a band of few taps per output (a resize), tables
 // slot-major (neighbouring outputs of one slot side by side).  XLA also
@@ -98,6 +103,12 @@ __device__ __forceinline__ float add_f(float a, float b) {
   return F ? ftz(r) : r;
 }
 
+template <bool F>
+__device__ __forceinline__ float mul_f(float a, float b) {
+  const float r = __fmul_rn(a, b);
+  return F ? ftz(r) : r;
+}
+
 // XLA's sum of its partial sums: a, a + b, (a + b) + (c + d).
 template <bool F>
 __device__ __forceinline__ float tree_f(float a, float b, float c, float d,
@@ -110,7 +121,7 @@ __device__ __forceinline__ float tree_f(float a, float b, float c, float d,
 struct Band {
   const int* idx;                 // (2, slots, period)
   const float* wt;                // (2, slots, period)
-  const int* lanes_of;            // (2, period)
+  const int* lanes_of;            // (2, period); 0: one chain, no FMA
   const int* kblk;                // (2, period)
   const unsigned char* complete;  // (2, period)
   const int* trail;               // (2, blocks * lanes, period)
@@ -119,12 +130,15 @@ struct Band {
 
 // The band's sum for output o through table t, for N dot rows at once
 // (load(k, v) gives the N rows' inputs at k, already flushed), and the
-// count of infinite taps of each.
-template <int LANES, int N, bool F, class Load>
+// count of infinite taps of each.  U: the band has outputs of 0 lanes
+// (Band.unfused); only then is the no-FMA step built.
+template <int LANES, int N, bool F, bool U, class Load>
 __device__ __forceinline__ void band_sum(const Band& b, int t, int o, const Load& load,
                          float (&res)[N], int (&infs)[N]) {
   const int per = b.period;
-  const int L = b.lanes_of[t * per + o];
+  const int lanes_of = b.lanes_of[t * per + o];
+  const int L = U ? max(lanes_of, 1) : lanes_of;
+  const bool unfused = U && lanes_of == 0;
   const int width = b.lanes * b.steps + b.lanes;
   const int* idx = b.idx + (long long)t * b.slots * per + o;
   const float* wt = b.wt + (long long)t * b.slots * per + o;
@@ -155,7 +169,8 @@ __device__ __forceinline__ void band_sum(const Band& b, int t, int o, const Load
 #pragma unroll
         for (int n = 0; n < N; ++n) {
           infs[n] += isinf(v[n]) ? 1 : 0;
-          lane[c][n] = fma_f<F>(v[n], w, lane[c][n]);
+          lane[c][n] = unfused ? add_f<F>(lane[c][n], mul_f<F>(v[n], w))
+                               : fma_f<F>(v[n], w, lane[c][n]);
         }
         used = true;
       }
@@ -187,7 +202,7 @@ __device__ __forceinline__ void band_sum(const Band& b, int t, int o, const Load
 #pragma unroll
       for (int n = 0; n < N; ++n) {
         infs[n] += isinf(v[n]) ? 1 : 0;
-        tl[c][n] = F ? ftz(__fmul_rn(v[n], w)) : __fmul_rn(v[n], w);
+        tl[c][n] = mul_f<F>(v[n], w);
       }
       has = true;
     }
@@ -208,36 +223,149 @@ __device__ __forceinline__ void band_sum(const Band& b, int t, int o, const Load
 
 // band_sum with the flushes (F) or without them (no tiny input, no small
 // weight: they would change nothing).
-template <int LANES, int N, class Load>
+template <int LANES, bool U, int N, class Load>
 __device__ __forceinline__ void band_sum_any(const Band& b, bool flush,
                                              int t, int o, const Load& load,
                                              float (&res)[N],
                                              int (&infs)[N]) {
   if (flush) {
-    band_sum<LANES, N, true>(b, t, o, load, res, infs);
+    band_sum<LANES, N, true, U>(b, t, o, load, res, infs);
   } else {
-    band_sum<LANES, N, false>(b, t, o, load, res, infs);
+    band_sum<LANES, N, false, U>(b, t, o, load, res, infs);
   }
 }
 
 // x86's NaN of inf * 0 and inf - inf.
 constexpr int kDefaultNan = (int)0xffc00000u;
 constexpr int kNoNan = 0x7fffffff;
+constexpr unsigned kQuiet = 0x00400000u;   // set in a NaN x86 passes on
+
+// The NaN XLA's CPU dot gives a result whose sum holds a NaN or an
+// infinity (ops/kernels.nan_model): the card's own NaNs carry no payload,
+// so this branch, taken only where a result is NaN, writes XLA's.  A
+// partial sum's state is finite, +inf, -inf or a NaN's bits; a NaN operand
+// wins, the first one of an add (in an FMA chain the input's, which
+// vfmadd231 takes first); opposite infinities make the default NaN.
+struct NanState {
+  int kind;                 // 0 finite, 1 +inf, 2 -inf, 3 NaN
+  unsigned bits;
+};
+
+__device__ __forceinline__ NanState ns_add(NanState a, NanState b) {
+  if (a.kind == 3) return a;
+  if (b.kind == 3) return b;
+  if (a.kind && b.kind && a.kind != b.kind)
+    return {3, (unsigned)kDefaultNan};
+  return a.kind ? a : b;
+}
+
+__device__ __forceinline__ NanState ns_prod(float x, float w) {
+  if (isnan(x)) return {3, __float_as_uint(x) | kQuiet};
+  if (isinf(x)) {
+    if (w == 0.0f) return {3, (unsigned)kDefaultNan};
+    return {(x > 0.0f) == (w > 0.0f) ? 1 : 2, 0u};
+  }
+  return {0, 0u};
+}
+
+__device__ __forceinline__ NanState ns_tree(const NanState (&v)[4],
+                                            int lanes) {
+  if (lanes == 1) return v[0];
+  if (lanes == 2) return ns_add(v[0], v[1]);
+  return ns_add(ns_add(v[0], v[1]), ns_add(v[2], v[3]));
+}
+
+// Walks one dot row in XLA's order (per k-block of kb, `lanes` chains,
+// their tree going before the sum of the blocks so far; the tail's tree
+// last, or first in the paired columns of a k = 3 dot); x(k) the input at
+// k, wt(k) its weight (0 off the taps).  Only non-finite inputs change a
+// state.  Returns XLA's NaN (x86's default where the walk makes none).
+template <class X, class Wt>
+__device__ float nan_walk(int src, int lanes_of, int kb, const X& x,
+                          const Wt& wt) {
+  const bool unfused = lanes_of == 0;
+  const int L = max(lanes_of, 1);
+  const bool paired = L == 2 && src == 3;
+  NanState out{0, 0u}, tail[4] = {}, ch[4] = {};
+  bool has_tail = false;
+  for (int lo = 0; lo < src; lo += kb) {
+    const int hi = min(src, lo + kb);
+    const int main = lo + (hi - lo) / L * L;
+    for (int c = 0; c < 4; ++c) ch[c] = {0, 0u};
+    for (int k = lo; k < hi; ++k) {
+      const float v = x(k);
+      if (isfinite(v)) continue;
+      const NanState p = ns_prod(v, wt(k));
+      if (k < main) {
+        NanState& c = ch[(k - lo) % L];
+        c = !unfused && isnan(v) ? p : ns_add(c, p);
+      } else {
+        tail[k - main] = p;
+        has_tail = true;
+      }
+    }
+    const NanState blk = ns_tree(ch, L);
+    out = lo ? ns_add(blk, out) : blk;
+  }
+  if (has_tail) {
+    const NanState t = ns_tree(tail, L);
+    out = paired ? ns_add(out, t) : ns_add(t, out);
+  }
+  return __uint_as_float(out.kind == 3 ? out.bits : (unsigned)kDefaultNan);
+}
+
+constexpr float kMaxFloat = 3.40282347e38f;
+
+// XLA's NaN of the 2-D DCT's result (r, c) of one block: the second pass's
+// walk over Y[r][k] (yt[k * rs], the first pass's results as staged) with
+// weights W[c][k] (w_sm[k * rs + c]), a NaN Y[r][k] taking the first
+// pass's walk over the block's column k of the input (x0[k' * w + k], in
+// device memory) with weights W[r][k'] (w_sm[k' * rs + r]).
+__device__ __forceinline__ float dct_nan(const float* yt, const float* w_sm,
+                                      const float* x0, int w, int rs, int s,
+                                      int lanes, int r, int c) {
+  auto y = [=](int k) {
+    const float v = yt[k * rs];
+    if (!isnan(v)) return v;
+    return nan_walk(s, lanes, s, [=](int q) { return x0[q * w + k]; },
+                    [=](int q) { return w_sm[q * rs + r]; });
+  };
+  return nan_walk(s, lanes, s, y, [=](int k) { return w_sm[k * rs + c]; });
+}
+
+// Tap weight of output o at k through table t (0 if k is no tap).
+__device__ __forceinline__ float band_weight(const Band& b, int t, int o,
+                                             int k) {
+  const long long base = (long long)t * b.slots * b.period + o;
+  for (int q = 0; q < b.slots; ++q)
+    if (b.idx[base + (long long)q * b.period] == k)
+      return b.wt[base + (long long)q * b.period];
+  return 0.0f;
+}
+
+// nan_walk of output o's dot row through table t (load1(k) its input at
+// k), out of line: the resize takes it only where a result is NaN.
+template <class Load1>
+__device__ __noinline__ float band_nan(const Band b, int t, int o,
+                                       const Load1 load1) {
+  return nan_walk(b.src, b.lanes_of[t * b.period + o],
+                  __ldg(b.kblk + t * b.period + o), load1,
+                  [&](int k) { return band_weight(b, t, o, k); });
+}
 
 // XLA's terms x * 0 of the k the band skips, on one dot row's result r:
-// NaN where the row holds a NaN or an infinity off the taps (nan: the
-// row's first NaN input, else x86's default NaN, as ops/kernels._row_nan);
-// a -0 becomes +0 unless every partial sum of every k-block holds a tap
-// and every input past the last tap of each partial sum is negative.
+// NaN where the row holds a NaN or an infinity off the taps (its bits
+// nan_walk's); a -0 becomes +0 unless every partial sum of every k-block
+// holds a tap and every input past the last tap of each partial sum is
+// negative.
 template <class Load1>
 __device__ __forceinline__ float fix(const Band& b, int t, int o, float r, int infs,
-                     bool row_nan, int row_inf, float nan,
-                     const Load1& load1) {
-  if (row_nan || row_inf > infs || isnan(r)) return nan;
+                     bool row_nan, int row_inf, const Load1& load1) {
+  if (row_nan || row_inf > infs || isnan(r)) return band_nan(b, t, o, load1);
   if (r != 0.0f || !signbit(r)) return r;
   const int per = b.period;
   if (!__ldg(b.complete + t * per + o)) return 0.0f;
-  const int L = b.lanes_of[t * per + o];
+  const int L = max(b.lanes_of[t * per + o], 1);
   const int kb = __ldg(b.kblk + t * per + o);
   const int rows = b.blocks * b.lanes;
   for (int q = 0; q < rows; ++q) {
@@ -278,7 +406,7 @@ __device__ __forceinline__ int stage_band(Band& b, float* sm, int staged) {
 // x (P, H, W) -> out (P, dst, W): a tile per (plane, 32-column strip);
 // persistent blocks walk over tiles with the band's table in shared
 // memory.
-template <int LANES>
+template <int LANES, bool U>
 __global__ void __launch_bounds__(kThreads)
 banded_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
                    Band b, int p_count, int h, int w, int staged,
@@ -374,7 +502,7 @@ banded_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
         float res[4];
         int infs[4];
         if (t0 == t3) {
-          band_sum_any<LANES, 4>(b, flush, t0, o, load4, res, infs);
+          band_sum_any<LANES, U, 4>(b, flush, t0, o, load4, res, infs);
         } else {
 #pragma unroll
           for (int n = 0; n < 4; ++n) {
@@ -385,8 +513,8 @@ banded_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
               load4(k, v4);
               v[0] = v4[n];
             };
-            band_sum_any<LANES, 1>(b, flush, row0 + n >= b.row_split, o,
-                                   load1, r1, i1);
+            band_sum_any<LANES, U, 1>(b, flush, row0 + n >= b.row_split,
+                                      o, load1, r1, i1);
             res[n] = r1[0];
             infs[n] = i1[0];
           }
@@ -399,11 +527,8 @@ banded_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
             load4(k, v4);
             return v4[n];
           };
-          const float nan = first[n] == kNoNan
-                                ? __int_as_float(kDefaultNan)
-                                : at(first[n]);
           res[n] = fix(b, t, o, res[n], infs[n], first[n] != kNoNan,
-                       rinf[n], nan, at);
+                       rinf[n], at);
         }
         float* dp = op + (long long)o * w + c0;
         if (vec) {
@@ -427,7 +552,7 @@ banded_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
 // Rows a warp takes at once.
 constexpr int kColsRows = 4;
 
-template <int LANES>
+template <int LANES, bool U>
 __global__ void __launch_bounds__(kThreads)
 banded_cols_kernel(const float* __restrict__ x, float* __restrict__ out,
                    Band b, long long rows, int w, int staged,
@@ -495,7 +620,8 @@ banded_cols_kernel(const float* __restrict__ x, float* __restrict__ out,
       float res[kColsRows];
       int infs[kColsRows];
       if (t0 == t3) {
-        band_sum_any<LANES, kColsRows>(b, flush, t0, o, load4, res, infs);
+        band_sum_any<LANES, U, kColsRows>(b, flush, t0, o, load4, res,
+                                          infs);
       } else {
 #pragma unroll
         for (int r = 0; r < kColsRows; ++r) {
@@ -504,8 +630,8 @@ banded_cols_kernel(const float* __restrict__ x, float* __restrict__ out,
           auto load1 = [=](int k, float (&v)[1]) {
             v[0] = r < nr ? at(r, k) : 0.0f;
           };
-          band_sum_any<LANES, 1>(b, flush, row0 + r >= b.row_split, o,
-                                 load1, r1, i1);
+          band_sum_any<LANES, U, 1>(b, flush, row0 + r >= b.row_split, o,
+                                    load1, r1, i1);
           res[r] = r1[0];
           infs[r] = i1[0];
         }
@@ -514,11 +640,9 @@ banded_cols_kernel(const float* __restrict__ x, float* __restrict__ out,
       for (int r = 0; r < kColsRows; ++r) {
         if (r >= nr) break;
         auto at1 = [=](int k) { return at(r, k); };
-        const float nan = nan_c[r] == kNoNan ? __int_as_float(kDefaultNan)
-                                             : at(r, nan_c[r]);
         out[(row0 + r) * dst + o] = fix(b, row0 + r >= b.row_split, o,
                                         res[r], infs[r], nan_c[r] != kNoNan,
-                                        inf_c[r], nan, at1);
+                                        inf_c[r], at1);
       }
     }
   }
@@ -564,9 +688,10 @@ __device__ __forceinline__ int level(float y, float hi, float lo,
 template <int S>
 struct Geo {
   // threads a block of the grid, and blocks an SM should hold (several
-  // small ones overlap each other's staging, barriers and epilogue)
+  // small ones overlap each other's staging, barriers and epilogue; at
+  // S = 8, five, which the NaN branch would otherwise take one of)
   static constexpr int NT = S == 128 ? 512 : 128;
-  static constexpr int MINB = S == 128 ? 1 : 4;
+  static constexpr int MINB = S == 128 ? 1 : S == 8 ? 5 : 4;
   static constexpr int V = S < 4 ? S : 4;          // floats a vector load
   static constexpr int GB = S >= 64 ? 2 : 1;       // column groups
   static constexpr int TA = V, TB = V * GB;
@@ -816,6 +941,7 @@ dct2d_kernel(const float* __restrict__ x, void* __restrict__ out,
       if (valid) {
         float* op = static_cast<float*>(out);
         const int e0 = base_of(b);
+        bool finite = true;
         float rcp = 1.0f, m = 0.0f;
         if (ep.rcp) {
           const int l = p / ep.f_group % ep.f_tables;
@@ -843,8 +969,29 @@ dct2d_kernel(const float* __restrict__ x, void* __restrict__ out,
               if (ep.rcp)
                 y[n] = m == 0.0f ? ftz(__fmul_rn(y[n], rcp))
                                  : ftz(__fmaf_rn(y[n], rcp, m));
+              finite &= fabsf(y[n]) <= kMaxFloat;
             }
             st<V>(op + e, y);
+          }
+        }
+        if (!finite) {
+          // where a result is NaN, XLA's NaN (the card's carry no
+          // payload): the addend's, else both passes walked again
+          // (dct_nan, x86's default NaN where the sum holds none: inf -
+          // inf in the add), the first from the input in device memory
+          // (its tile now holds Y).  One copy of the walk, no call.
+#pragma unroll 1
+          for (int q = 0; q < TA * TB; ++q) {
+            const int i = q / TB, j = q % TB;
+            const int r = V * ta + i;
+            const int c = V * tb + j % V + (j / V) * (S / G::GB);
+            const int e = e0 + r * w + c;
+            if (!isnan(op[e])) continue;
+            const float a = ep.add ? ep.add[e] : 0.0f;
+            op[e] = ep.add && isnan(a)
+                        ? __uint_as_float(__float_as_uint(a) | kQuiet)
+                        : dct_nan(xb + r, w_sm, x + e0, w, G::RS, S, L, r,
+                                  c);
           }
         }
       }
@@ -1024,7 +1171,7 @@ int launch_dct2d_lanes(int lanes, const float* x, void* out,
   }
 }
 
-template <int LANES>
+template <int LANES, bool U>
 int launch_banded(const float* x, float* out, const Band& b, int p, int h,
                   int w, int axis, int careful, cudaStream_t st) {
   const long long rows = (long long)p * (axis == 1 ? w : h);
@@ -1037,20 +1184,20 @@ int launch_banded(const float* x, float* out, const Band& b, int p, int h,
   if (axis == 1) {
     const int staged = tbytes + (long long)h * 32 * 4 <= kStageLimit;
     const int bytes = tbytes + (staged ? h * 32 * 4 : 0);
-    const int err = persistent_grid(banded_rows_kernel<LANES>, bytes,
+    const int err = persistent_grid(banded_rows_kernel<LANES, U>, bytes,
                                     (long long)p * ((w + 31) / 32), &grid);
     if (err) return err;
-    banded_rows_kernel<LANES><<<(unsigned)grid, kThreads, bytes, st>>>(
+    banded_rows_kernel<LANES, U><<<(unsigned)grid, kThreads, bytes, st>>>(
         x, out, b, p, h, w, staged, tables_staged, careful);
   } else {
     const int staged =
         tbytes + (long long)w * 8 * kColsRows * 4 <= kStageLimit;
     const int bytes = tbytes + (staged ? w * 8 * kColsRows * 4 : 0);
     const long long groups = (rows + kColsRows - 1) / kColsRows;
-    const int err = persistent_grid(banded_cols_kernel<LANES>, bytes,
+    const int err = persistent_grid(banded_cols_kernel<LANES, U>, bytes,
                                     (groups + 7) / 8, &grid);
     if (err) return err;
-    banded_cols_kernel<LANES><<<(unsigned)grid, kThreads, bytes, st>>>(
+    banded_cols_kernel<LANES, U><<<(unsigned)grid, kThreads, bytes, st>>>(
         x, out, b, rows, w, staged, tables_staged, careful);
   }
   return (int)cudaGetLastError();
@@ -1062,15 +1209,31 @@ extern "C" int aej_banded_resize(
     const float* x, float* out, const int* idx, const float* wt,
     const int* lanes_of, const int* kblk, const unsigned char* complete,
     const int* trail, int p, int h, int w, int dst, int axis, int blocks,
-    int lanes, int steps, int slots, int row_split, int careful,
+    int lanes, int steps, int slots, int row_split, int flags,
     void* stream) {
+  // flags: 1 the band's small weights (flush always), 2 Band.unfused
   Band b{idx, wt, lanes_of, kblk, complete, trail, blocks, lanes, steps,
          slots, dst, row_split, axis == 1 ? h : w};
+  const int careful = flags & 1;
   cudaStream_t st = (cudaStream_t)stream;
+  if (flags & 2) {
+    switch (lanes) {
+      case 1: return launch_banded<1, true>(x, out, b, p, h, w, axis,
+                                            careful, st);
+      case 2: return launch_banded<2, true>(x, out, b, p, h, w, axis,
+                                            careful, st);
+      case 4: return launch_banded<4, true>(x, out, b, p, h, w, axis,
+                                            careful, st);
+      default: return -1;
+    }
+  }
   switch (lanes) {
-    case 1: return launch_banded<1>(x, out, b, p, h, w, axis, careful, st);
-    case 2: return launch_banded<2>(x, out, b, p, h, w, axis, careful, st);
-    case 4: return launch_banded<4>(x, out, b, p, h, w, axis, careful, st);
+    case 1: return launch_banded<1, false>(x, out, b, p, h, w, axis, careful,
+                                           st);
+    case 2: return launch_banded<2, false>(x, out, b, p, h, w, axis, careful,
+                                           st);
+    case 4: return launch_banded<4, false>(x, out, b, p, h, w, axis, careful,
+                                           st);
     default: return -1;
   }
 }

@@ -28,7 +28,8 @@ import torch.nn.functional as F
 
 from .dfloat import expf_xla
 from .kernels import (bilateral, clahe_apply_gather,
-                      clahe_gather_supported, clahe_lut_apply, histogram256)
+                      clahe_gather_supported, clahe_lut_apply, disk,
+                      histogram256, reflect101_pad)
 
 
 # --------------------------------------------------------------- uint8 cast
@@ -36,31 +37,6 @@ def to_uint8(img: torch.Tensor) -> torch.Tensor:
     """(img * 255).astype(np.uint8) with C-cast wrap-around parity: truncate
     toward zero, then keep the low byte (negative chroma wraps)."""
     return torch.trunc(img * 255.0).to(torch.int32).to(torch.uint8)
-
-
-# ------------------------------------------------------------------ padding
-def _reflect101_indices(n: int, before: int, after: int) -> np.ndarray:
-    base = np.arange(-before, n + after)
-    if n == 1:
-        return np.zeros_like(base)
-    period = 2 * n - 2
-    m = np.mod(base, period)
-    return np.where(m < n, m, period - m)
-
-
-def _reflect101_pad(img: torch.Tensor, top: int, bottom: int, left: int,
-                    right: int) -> torch.Tensor:
-    """OpenCV BORDER_REFLECT_101 padding of the last two dims (edge pixel
-    not duplicated)."""
-    if top or bottom:
-        idx = torch.as_tensor(_reflect101_indices(img.shape[-2], top, bottom),
-                              device=img.device)
-        img = img[..., idx, :]
-    if left or right:
-        idx = torch.as_tensor(_reflect101_indices(img.shape[-1], left, right),
-                              device=img.device)
-        img = img[..., idx]
-    return img
 
 
 # -------------------------------------------------------------------- CLAHE
@@ -176,7 +152,7 @@ def clahe(img_u8: torch.Tensor, clip_limit: float = 0.75,
     gh, gw = grid
     th = -(-h // gh)
     tw = -(-w // gw)
-    padded = _reflect101_pad(img_u8, 0, th * gh - h, 0, tw * gw - w)
+    padded = reflect101_pad(img_u8, 0, th * gh - h, 0, tw * gw - w)
     luts = _clahe_luts(padded, th, tw, gh, gw, clip_limit)  # (P, gh, gw, 256)
     key = (img_u8.device, h, w, th, tw, gh, gw)
     img = img_u8.contiguous()
@@ -226,7 +202,7 @@ def gaussian_blur_u8(img_u8: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     kf = _gaussian_kernel_u8(ksize)
     r = ksize // 2
     h, w = img_u8.shape[-2:]
-    padded = _reflect101_pad(img_u8.to(torch.int32), r, r, r, r)
+    padded = reflect101_pad(img_u8.to(torch.int32), r, r, r, r)
     rowsum = torch.zeros(padded.shape[:-1] + (w,), dtype=torch.int32,
                          device=img_u8.device)
     for j in range(ksize):
@@ -250,11 +226,10 @@ def _color_weights(sigma_color: float, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _bilateral_taps(d: int, sigma_color: float, sigma_space: float,
-                    device: torch.device):
-    """The disk's taps in the reference's order: (taps, 2) int32 offsets
-    (dy, dx) and (taps, 256) float32 weights f32(s_w * colour weight) by
-    |d|, the products the reference rounds, on `device`."""
+def _bilateral_taps(d: int, sigma_color: float, sigma_space: float):
+    """The space weights of the disk's taps (`kernels.disk`, the
+    reference's order) as float32 values, checked so that every nonzero
+    weight f32(s_w * colour weight) the taps make is at least 2**-17."""
     radius = d // 2
     gauss_space_coeff = -0.5 / (sigma_space * sigma_space)
     offs, sw = [], []
@@ -265,13 +240,15 @@ def _bilateral_taps(d: int, sigma_color: float, sigma_space: float,
                 continue
             offs.append((dy, dx))
             sw.append(math.exp(rr * rr * gauss_space_coeff))
+    if offs != disk(radius):
+        raise ValueError(f"bilateral: the disk of radius {radius} differs "
+                         "from kernels.disk")
     sw = torch.tensor(np.asarray(sw, np.float32))
     weights = sw[:, None] * _color_weights(sigma_color, torch.device("cpu"))
     if bool(((weights != 0) & (weights < 2.0 ** -17)).any()):
         raise ValueError(f"bilateral: sigma_color={sigma_color} makes "
                          "colour weights below 2**-17")
-    return (torch.tensor(offs, dtype=torch.int32, device=device),
-            weights.to(device))
+    return tuple(sw.tolist())
 
 
 def bilateral_u8(img_u8: torch.Tensor, d: int = 5, sigma_color: float = 75.0,
@@ -284,19 +261,19 @@ def bilateral_u8(img_u8: torch.Tensor, d: int = 5, sigma_color: float = 75.0,
     are s_w * exp(...) with XLA's exp; the numerator starts as
     fma(w0, nb0, w1 * nb1) (LLVM fuses the first product of an add of two)
     and takes each further tap as fma(w, nb, num); the denominator adds
-    the rounded weights.  The taps run in kernels.bilateral."""
-    radius = d // 2
-    offs, weights = _bilateral_taps(d, float(sigma_color), float(sigma_space),
-                                    img_u8.device)
-    padded = _reflect101_pad(img_u8, radius, radius, radius, radius)
-    return bilateral(padded.contiguous(), weights, offs, radius)
+    the rounded weights.  The taps run in kernels.bilateral, which pads
+    the planes itself."""
+    space = _bilateral_taps(d, float(sigma_color), float(sigma_space))
+    return bilateral(img_u8.contiguous(),
+                     _color_weights(float(sigma_color), img_u8.device),
+                     space, d // 2)
 
 
 # ------------------------------------------------------------------- sobel
 def sobel_xy(img_u8: torch.Tensor):
     """Sobel dx, dy (aperture 3) on (P, H, W) uint8 -> int32,
     BORDER_REFLECT_101 (OpenCV Canny's internal gradients)."""
-    pd = _reflect101_pad(img_u8.to(torch.int32), 1, 1, 1, 1)
+    pd = reflect101_pad(img_u8.to(torch.int32), 1, 1, 1, 1)
     h, w = img_u8.shape[-2:]
 
     def sl(dy, dx):

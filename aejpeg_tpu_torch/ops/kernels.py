@@ -91,7 +91,7 @@ _SIGNATURES = {
     "aej_dct2d": ("banded_resize.cu",
                   [_VP] * 3 + [_I] * 6 + [_VP, _VP, _I, _I, _VP, _I]
                   + [_VP] * 3 + [_I, _I, _VP]),
-    "aej_bilateral": ("bilateral.cu", [_VP] * 4 + [_I] * 5 + [_VP]),
+    "aej_bilateral": ("bilateral.cu", [_VP] * 4 + [_I] * 4 + [_VP]),
 }
 _FNS = {}
 _FNS_LOCK = threading.Lock()
@@ -339,13 +339,49 @@ def u8_to_unit(x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------- bilateral filter
 
 
-def bilateral_plain(padded: torch.Tensor, weights: torch.Tensor,
-                    offsets, radius: int) -> torch.Tensor:
-    """Plain version of bilateral (offsets as (dy, dx) pairs)."""
-    h = padded.shape[-2] - 2 * radius
-    w = padded.shape[-1] - 2 * radius
-    center = padded[..., radius:radius + h, radius:radius + w].to(
-        torch.int32)
+def reflect101_indices(n: int, before: int, after: int) -> np.ndarray:
+    """Source indices of an axis of n padded by `before` and `after`
+    BORDER_REFLECT_101 (the edge not repeated)."""
+    base = np.arange(-before, n + after)
+    if n == 1:
+        return np.zeros_like(base)
+    period = 2 * n - 2
+    m = np.mod(base, period)
+    return np.where(m < n, m, period - m)
+
+
+def reflect101_pad(img: torch.Tensor, top: int, bottom: int, left: int,
+                   right: int) -> torch.Tensor:
+    """OpenCV BORDER_REFLECT_101 padding of the last two dims."""
+    if top or bottom:
+        idx = torch.as_tensor(reflect101_indices(img.shape[-2], top, bottom),
+                              device=img.device)
+        img = img[..., idx, :]
+    if left or right:
+        idx = torch.as_tensor(reflect101_indices(img.shape[-1], left, right),
+                              device=img.device)
+        img = img[..., idx]
+    return img
+
+
+def disk(radius: int):
+    """The bilateral's taps: (dy, dx) with dy**2 + dx**2 <= radius**2, row
+    by row, as the reference's loop visits them."""
+    return [(dy, dx) for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1)
+            if dy * dy + dx * dx <= radius * radius]
+
+
+def bilateral_plain(planes: torch.Tensor, colour: torch.Tensor, space,
+                    radius: int) -> torch.Tensor:
+    """Plain version of bilateral: the planes padded BORDER_REFLECT_101,
+    tap t's weights the float32 products space[t] * colour[|d|]."""
+    offsets = disk(radius)
+    h, w = planes.shape[-2:]
+    padded = reflect101_pad(planes, radius, radius, radius, radius)
+    weights = torch.tensor(np.asarray(space, np.float32),
+                           device=planes.device)[:, None] * colour
+    center = planes.to(torch.int32)
 
     def tap(i):
         dy, dx = offsets[i]
@@ -368,37 +404,38 @@ def bilateral_plain(padded: torch.Tensor, weights: torch.Tensor,
     return torch.clamp(torch.floor(out + 0.5), 0, 255).to(torch.uint8)
 
 
-def bilateral(padded: torch.Tensor, weights: torch.Tensor,
-              offsets: torch.Tensor, radius: int) -> torch.Tensor:
-    """The bilateral filter's taps over (P, H + 2 radius, W + 2 radius)
-    uint8 planes padded BORDER_REFLECT_101 -> (P, H, W) uint8.  weights:
-    (taps, 256) float32, tap t's weight by |d| (its nonzero entries at
-    least 2**-17, so that the kernel's FMA and the plain version's fma32
-    round the same exact value); offsets: (taps, 2) int32 (dy, dx), in the
-    reference's order.  Per pixel: num = fma(w0, nb0, w1 * nb1), then
+def bilateral(planes: torch.Tensor, colour: torch.Tensor, space,
+              radius: int) -> torch.Tensor:
+    """The bilateral filter's taps over (P, H, W) uint8 planes, padded
+    BORDER_REFLECT_101 by `radius` (inside the kernel on the card) ->
+    (P, H, W) uint8.  colour: (256,) float32 colour weights by |d|, d the
+    difference of a tap's pixel to the centre; space: the float32 space
+    weights of the taps of `disk(radius)`, host values.  Tap t's weight is
+    the float32 product space[t] * colour[|d|] (every nonzero one at least
+    2**-17, so that the kernel's FMA and the plain version's fma32 round
+    the same exact value).  Per pixel: num = fma(w0, nb0, w1 * nb1), then
     fma(w, nb, num) per further tap; den the sum of the weights in order;
     floor(num / den + 0.5) clamped to [0, 255] (ops/canny.bilateral_u8)."""
-    if padded.dim() != 3 or weights.dim() != 2 or offsets.dim() != 2:
-        raise ValueError("bilateral: expected (P, H, W) planes, (taps, 256) "
-                         "weights and (taps, 2) offsets")
-    taps = weights.shape[0]
-    p, ph, pw = padded.shape
-    dev = padded.device
-    _check("bilateral", padded, torch.uint8, padded.shape, dev)
-    _check("bilateral", weights, torch.float32, (taps, 256), dev)
-    _check("bilateral", offsets, torch.int32, (taps, 2), dev)
-    h, w = ph - 2 * radius, pw - 2 * radius
-    if taps < 1 or h < 1 or w < 1:
-        raise ValueError(f"bilateral: {taps} taps on planes of {h}x{w}")
+    if planes.dim() != 3:
+        raise ValueError("bilateral: expected (P, H, W) planes")
+    dev = planes.device
+    _check("bilateral", planes, torch.uint8, planes.shape, dev)
+    _check("bilateral", colour, torch.float32, (256,), dev)
+    if not 0 <= radius <= 3 or len(space) != len(disk(radius)):
+        raise ValueError(f"bilateral: {len(space)} space weights for the "
+                         f"disk of radius {radius} (radius 0-3)")
+    p, h, w = planes.shape
+    if h < 1 or w < 1:
+        raise ValueError(f"bilateral: planes of {h}x{w}")
     if not _route("bilateral", dev):
-        return bilateral_plain(padded, weights, offsets.tolist(), radius)
-    if taps > 29 or radius > 3:
-        raise ValueError("bilateral: at most 29 taps of radius 3")
+        return bilateral_plain(planes, colour, space, radius)
+    if p > 65535:
+        raise ValueError("bilateral: at most 65535 planes a call")
     out = torch.empty((p, h, w), dtype=torch.uint8, device=dev)
     if out.numel():
-        _launch("aej_bilateral", dev, padded.data_ptr(), out.data_ptr(),
-                weights.data_ptr(), offsets.data_ptr(), p, h, w, taps,
-                radius)
+        host = (ctypes.c_float * len(space))(*map(float, space))
+        _launch("aej_bilateral", dev, planes.data_ptr(), out.data_ptr(),
+                colour.data_ptr(), ctypes.addressof(host), p, h, w, radius)
         LAUNCHES["bilateral"].add()
     return out
 
@@ -445,6 +482,8 @@ def _band_table(x, band, axis, t):
     valid = idx >= 0
     view = (1, -1, 1) if axis == 1 else (1, 1, -1)
     lanes_of = band.lanes_of[t].view(view)
+    unfused = lanes_of == 0
+    any_unfused = bool(unfused.any())
     infs = 0
 
     def tap(slot):
@@ -466,7 +505,10 @@ def _band_table(x, band, axis, t):
                 if not bool(valid[base + c * steps + s].any()):
                     continue
                 xs, w, ok = tap(base + c * steps + s)
-                acc = torch.where(ok, ftz(fma32_exact(xs, w, acc)), acc)
+                step = ftz(fma32_exact(xs, w, acc))
+                if any_unfused:
+                    step = torch.where(unfused, ftz(acc + ftz(xs * w)), step)
+                acc = torch.where(ok, step, acc)
             chains.append(acc)
         blk = _tree_by(chains, lanes_of)
         if out is None:
@@ -502,7 +544,7 @@ def _zero_sign(x, out, band, axis, t):
     keep = band.complete[t].bool().view(view) & neg0
     trail = band.trail[t].long()            # (blocks * lanes, period)
     kblk = band.k_block[t].long()
-    lanes_of = band.lanes_of[t].long()
+    lanes_of = band.lanes_of[t].long().clamp(min=1)
     k = torch.arange(band.src, device=x.device)
     clear = ~torch.signbit(x)               # inputs that turn -0 into +0
     for row in range(trail.shape[0]):
@@ -527,7 +569,8 @@ def banded_resize_plain(x: torch.Tensor, band, axis: int) -> torch.Tensor:
 
     Per output o: for each k-block of the band in turn, lanes_of[o] FMA
     chains from zero (each FMA rounds once, `fma32_exact`; a slot without
-    a tap leaves its chain as it is) and their tree sum, the blocks added
+    a tap leaves its chain as it is; lanes_of 0: one chain that rounds
+    each product, then adds it) and their tree sum, the blocks added
     in order; then the tree sum of the tail products (the k past the last
     multiple of the lanes, all in the last block), added last.  A
     subnormal input reads as zero and every product and sum below 2**-126
@@ -535,7 +578,7 @@ def banded_resize_plain(x: torch.Tensor, band, axis: int) -> torch.Tensor:
     band.row_split on (rows: the (plane, column) pairs of axis 1, the
     (plane, row) pairs of axis 2) use table 1.  Then XLA's terms x * 0 of
     the skipped k: an output is NaN where its dot row holds a NaN, or an
-    infinity at a k that is not one of its taps (its bits `_row_nan`'s);
+    infinity at a k that is not one of its taps (its bits `nan_model`'s);
     a -0 becomes +0 as `_zero_sign` says."""
     if band.stride:
         raise ValueError("banded_resize: the band must span the axis")
@@ -558,23 +601,161 @@ def banded_resize_plain(x: torch.Tensor, band, axis: int) -> torch.Tensor:
     nans = torch.isnan(x)
     row_inf = torch.isinf(x).sum(axis, keepdim=True)
     bad = nans.any(axis, keepdim=True) | (row_inf > infs) | torch.isnan(out)
-    return torch.where(bad, _row_nan(raw, nans, axis), out).contiguous()
+    return _band_nan(raw, band, axis, out.contiguous(),
+                     bad.expand(out.shape))
 
 
 _DEFAULT_NAN = -0x400000    # 0xffc00000: x86's NaN of inf * 0, inf - inf
+_QUIET = 0x400000           # the quiet bit x86 sets in a NaN it passes on
+# kinds of a partial sum in the NaN model
+_FIN, _POS, _NEG, _NAN = 0, 1, 2, 3
 
 
-def _row_nan(x, nans, axis):
-    """The NaN that XLA's dot gives a row: the row's first NaN input,
-    which every sum passes on, or x86's default NaN (0xffc00000) where the
-    NaN comes from inf * 0 or inf - inf.  (A row with several NaN inputs
-    or with both a NaN and an infinity may take another NaN on the CPU:
-    not modelled.)"""
-    first = nans.to(torch.uint8).argmax(axis, keepdim=True)
-    bits = torch.gather(x, axis, first).view(torch.int32)
-    default = torch.tensor(_DEFAULT_NAN, dtype=torch.int32, device=x.device)
-    bits = torch.where(nans.any(axis, keepdim=True), bits, default)
+def _nan_bits(bits, like):
+    """A float32 tensor like `like` holding the NaN of int32 `bits`."""
+    return torch.full(like.shape, bits, dtype=torch.int32,
+                      device=like.device).view(torch.float32)
+
+
+def _nan_add(ka, ba, kb, bb):
+    """XLA's a + b of partial-sum states (kind, NaN bits): a NaN operand
+    wins, a's first (x86's rule for the first source); else opposite
+    infinities make the default NaN; else an infinity stays."""
+    default = torch.full_like(ba, _DEFAULT_NAN)
+    k = torch.where(ka != _FIN, ka, kb)
+    k = torch.where((ka != _FIN) & (kb != _FIN) & (ka != kb), _NAN, k)
+    bits = torch.where((ka != _FIN) & (kb != _FIN) & (ka != kb), default, bb)
+    k = torch.where(kb == _NAN, _NAN, k)
+    bits = torch.where(kb == _NAN, bb, bits)
+    k = torch.where(ka == _NAN, _NAN, k)
+    bits = torch.where(ka == _NAN, ba, bits)
+    return k.to(torch.int32), bits.to(torch.int32)
+
+
+def _nan_prod(x, w):
+    """The state of x * w (w finite): x's NaN, quieted; inf * 0 the default
+    NaN; an infinity of the product's sign; else finite."""
+    xb = x.view(torch.int32)
+    k = torch.full(x.shape, _FIN, dtype=torch.int32, device=x.device)
+    k = torch.where(torch.isinf(x),
+                    torch.where((x > 0) == (w > 0), _POS, _NEG), k)
+    bits = torch.full_like(xb, _DEFAULT_NAN)
+    k = torch.where(torch.isinf(x) & (w == 0), _NAN, k)
+    k = torch.where(torch.isnan(x), _NAN, k)
+    bits = torch.where(torch.isnan(x), xb | _QUIET, bits)
+    return k.to(torch.int32), bits
+
+
+def _nan_tree(states, lanes):
+    """_lane_tree on states, the first operand of each add first."""
+    out = states[0]
+    if len(states) >= 2:
+        two = _nan_add(*states[0], *states[1])
+        out = tuple(torch.where(lanes >= 2, a, b) for a, b in zip(two, out))
+    if len(states) == 4:
+        four = _nan_add(*two, *_nan_add(*states[2], *states[3]))
+        out = tuple(torch.where(lanes >= 4, a, b) for a, b in zip(four, out))
+    return out
+
+
+def nan_model(x, w, lanes, k_block, paired):
+    """The NaN XLA's CPU dot gives each of N results whose sum holds a NaN
+    or an infinity: x (N, K) the dot rows' inputs in k order (NaN bits as
+    given), w (N, K) the weights (0 off the taps), lanes (N,) (0: one chain
+    without FMAs), k_block (N,), paired (N,) the k 2-3 columns whose tail
+    product comes last.  Read off jax.jit on rows of several NaNs and
+    infinities: in an FMA chain a NaN input wins over the chain's (x86's
+    vfmadd231 takes its product's operand first), in a chain without FMAs
+    the chain's wins; the lanes' tree takes its first operand's; a later
+    k-block's and the tail's win over the sum before them, except in the
+    paired columns.  Only non-finite inputs change a partial sum's state.
+    Returns (N,) float32, the result's bits where the model makes a NaN
+    (x86's default NaN where it makes none)."""
+    n, k_len = x.shape
+    dev = x.device
+    lanes_c = lanes.clamp(min=1).long()
+    k_block = k_block.long()
+    unfused = lanes == 0
+    width = int(lanes_c.max()) if n else 1
+    zeros = torch.zeros((width, n), dtype=torch.int32, device=dev)
+    ck, cb = zeros.clone(), zeros.clone()           # chains of the k-block
+    tk, tb = zeros.clone(), zeros.clone()           # tail products
+    ok = torch.zeros(n, dtype=torch.int32, device=dev)
+    ob = torch.zeros(n, dtype=torch.int32, device=dev)
+    started = torch.zeros(n, dtype=torch.bool, device=dev)
+    has_tail = torch.zeros(n, dtype=torch.bool, device=dev)
+    special = ~torch.isfinite(x)
+    for k in range(k_len):
+        if k:
+            ends = (k % k_block) == 0               # a k-block ends at k
+            if bool(ends.any()):
+                blk = _nan_tree([(ck[c], cb[c]) for c in range(width)],
+                                lanes_c)
+                nk, nb = _nan_add(*blk, ok, ob)
+                ok = torch.where(ends, torch.where(started, nk, blk[0]), ok)
+                ob = torch.where(ends, torch.where(started, nb, blk[1]), ob)
+                started = started | ends
+                ck = torch.where(ends, 0, ck)
+                cb = torch.where(ends, 0, cb)
+        hit = special[:, k].nonzero(as_tuple=True)[0]
+        if not hit.numel():
+            continue
+        xk, kb, lc = x[hit, k], k_block[hit], lanes_c[hit]
+        pk, pb = _nan_prod(xk, w[hit, k])
+        lo = k // kb * kb
+        main = lo + ((lo + kb).clamp(max=k_len) - lo) // lc * lc
+        in_main = k < main
+        lane = torch.where(in_main, (k - lo) % lc, k - main)
+        ak, ab = ck[lane, hit], cb[lane, hit]
+        fk, fb = _nan_add(ak, ab, pk, pb)
+        fma_nan = torch.isnan(xk) & ~unfused[hit]   # the input's NaN first
+        fk = torch.where(fma_nan, _NAN, fk).to(torch.int32)
+        fb = torch.where(fma_nan, pb, fb)
+        m, t = hit[in_main], hit[~in_main]
+        ck[lane[in_main], m] = fk[in_main]
+        cb[lane[in_main], m] = fb[in_main]
+        tk[lane[~in_main], t] = pk[~in_main]
+        tb[lane[~in_main], t] = pb[~in_main]
+        has_tail[t] = True
+    blk = _nan_tree([(ck[c], cb[c]) for c in range(width)], lanes_c)
+    nk, nb = _nan_add(*blk, ok, ob)
+    ok = torch.where(started, nk, blk[0])
+    ob = torch.where(started, nb, blk[1])
+    tail = _nan_tree([(tk[c], tb[c]) for c in range(width)], lanes_c)
+    last = tuple(torch.where(paired, a, b) for a, b in
+                 zip(_nan_add(ok, ob, *tail), _nan_add(*tail, ok, ob)))
+    kind = torch.where(has_tail, last[0], ok)
+    bits = torch.where(has_tail, last[1], ob)
+    bits = torch.where(kind == _NAN, bits, _DEFAULT_NAN)
     return bits.view(torch.float32)
+
+
+def _band_nan(raw, band, axis, out, bad):
+    """banded_resize_plain's results where XLA's are NaN (`bad`): the NaN
+    `nan_model` gives each, from the whole dot row (every k, the taps'
+    weights and zeros elsewhere)."""
+    if not bool(bad.any()):
+        return out
+    p, h, w = raw.shape
+    where = bad.nonzero(as_tuple=True)             # (plane, o or r, c or o)
+    plane, i1, i2 = where
+    o = i1 if axis == 1 else i2
+    rows = raw[plane, :, i2] if axis == 1 else raw[plane, i1, :]
+    m_row = plane * (w if axis == 1 else h) + (i2 if axis == 1 else i1)
+    t = (m_row >= band.row_split).long()
+    dense = torch.zeros((2, band.period, band.src), dtype=torch.float32,
+                        device=raw.device)
+    idx = band.idx.long()                           # (2, slots, period)
+    ok = idx >= 0
+    tt, slot, oo = ok.nonzero(as_tuple=True)
+    dense[tt, oo, idx[tt, slot, oo]] = band.weight[tt, slot, oo]
+    lanes = band.lanes_of[t, o]
+    paired = (lanes == 2) & (band.src == 3)
+    bits = nan_model(rows, dense[t, o], lanes, band.k_block[t, o].long(),
+                     paired)
+    res = out.clone()
+    res[where] = bits
+    return res
 
 
 def _banded_args(band):
@@ -612,7 +793,7 @@ def banded_resize(x: torch.Tensor, band, axis: int) -> torch.Tensor:
         _launch("aej_banded_resize", x.device, x.data_ptr(), out.data_ptr(),
                 *_banded_args(band), p, h, w, dst, axis, band.blocks,
                 band.lanes, band.steps, band.slots, band.row_split,
-                band.small_weight)
+                band.small_weight | 2 * band.unfused)
         LAUNCHES["banded_resize"].add()
     return out
 
@@ -717,6 +898,23 @@ def dct_pass_plain(x: torch.Tensor, band, axis: int) -> torch.Tensor:
                 acc = ftz(acc)
         chains.append(acc)
     tree = _lane_tree(chains) if tiny else _lane_tree_noflush(chains)
+    nan = torch.isnan(tree)
+    if bool(nan.any()):
+        # XLA's NaN of each such result (`nan_model`) from its window
+        where = nan.nonzero(as_tuple=True)
+        xv = x.view(xv.shape)
+        if axis == 1:
+            pl, blk, o, col = where
+            rows = xv[pl, blk, :, col]
+        else:
+            pl, row, blk, o = where
+            rows = xv[pl, row, blk, :]
+        n = o.numel()
+        tree = tree.clone()
+        tree[where] = nan_model(
+            rows, w[o], torch.full((n,), lanes, device=x.device),
+            torch.full((n,), k_len, device=x.device),
+            torch.zeros(n, dtype=torch.bool, device=x.device))
     return tree.reshape(p, h // k_len * s if axis == 1 else h,
                         wd if axis == 1 else wd // k_len * s)
 
@@ -755,9 +953,21 @@ def _zigzag_positions(s: int, device: torch.device) -> torch.Tensor:
 
 def _post_plain(y, add, affine):
     """dct2d's float epilogue: y = add + y, then fma(y, rcp, mid) per
-    plane (a product where mid is 0), each rounded once and flushed."""
+    plane (a product where mid is 0), each rounded once and flushed.
+    A NaN passes on as x86's add does, add's (quieted) before y's, inf -
+    inf makes x86's default NaN, and a NaN y passes through the fma, its
+    bits set explicitly (the card's arithmetic would give its own NaN)."""
+    nan_y = torch.isnan(y)
     if add is not None:
-        y = ftz(add + y)
+        total = ftz(add + y)
+        nan = torch.isnan(total)
+        if bool(nan.any()):
+            total = torch.where(nan, _nan_bits(_DEFAULT_NAN, y), total)
+            total = torch.where(nan_y, y, total)
+            total = torch.where(torch.isnan(add), (add.view(torch.int32)
+                                                   | _QUIET).view(y.dtype),
+                                total)
+        y, nan_y = total, nan
     if affine is not None:
         rcp, mid, group = affine
         layer = (torch.arange(y.shape[0], device=y.device) // group) \
@@ -766,7 +976,8 @@ def _post_plain(y, add, affine):
         mv = mid[layer].view(-1, 1, 1)
         fused = fma32_sum(y.to(torch.float64) * r.to(torch.float64),
                           mv.expand_as(y))
-        y = ftz(torch.where(mv == 0, y * r, fused))
+        out = ftz(torch.where(mv == 0, y * r, fused))
+        y = torch.where(nan_y, y, out) if bool(nan_y.any()) else out
     return y
 
 

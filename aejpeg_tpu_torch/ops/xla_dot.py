@@ -60,9 +60,16 @@ _XLA_OWN_DOT_MAX = 7
 # `xla_dot_plan`.
 _SMALL_M = 50
 _SMALL_M_MAX_N = 16
-# At m <= 50 with one chain, the columns go in groups of this many, and each
-# group's k-blocks hold 32768 // (its width) products (measured).
-_SMALL_M_COLUMN_GROUP = 64
+# At m <= 50 with one chain, the columns go in groups of the widest G =
+# 64 * 2**j for which k * (G + 2 m') and m' * G both stay under 2**17 (m'
+# the rows as the split counts them: m up to 16, 32 up to 32, 64 up to
+# 50); each group's k-blocks hold 32768 // (its width) products (measured).
+_GROUP_MIN = 64
+_GROUP_BUDGET = 1 << 17
+# ... and for these m, a last group of at most this many columns sums each
+# output as one chain of rounded products, added in k order (measured).
+_UNFUSED_M = (2, 3, 4, 6, 11, 12, 17, 18, 41, 42)
+_UNFUSED_MAX_WIDTH = 8
 # At k 2-3 and n 3-8 the first PAIRED[n] columns of the rows below the last
 # multiple of 8 sum as two partial sums, the rest as one chain (measured).
 _PAIRED = {3: 2, 4: 4, 5: 4, 6: 4, 7: 6, 8: 8}
@@ -116,10 +123,21 @@ def xla_dot_plan(m: int, k: int, n: int) -> Tuple[int, int]:
 class DotOrder(NamedTuple):
     """XLA's order for every output column of a dot: `columns[j]` is the
     (lanes, k_block) of column j in the rows below `row_split`;
-    `tail_columns[j]` that of the rows from `row_split` on."""
+    `tail_columns[j]` that of the rows from `row_split` on.  lanes 0: one
+    chain of rounded products, each added in k order (no FMA)."""
     columns: Tuple[Tuple[int, int], ...]
     row_split: int
     tail_columns: Tuple[Tuple[int, int], ...]
+
+
+def _column_group(m: int, k: int) -> int:
+    """The width of the column groups of a one-chain dot at m <= 50."""
+    rows = m if m <= 16 else 32 if m <= 32 else 64
+    g = _GROUP_MIN
+    while (k * (2 * g + 2 * rows) < _GROUP_BUDGET
+           and rows * 2 * g < _GROUP_BUDGET):
+        g *= 2
+    return g
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,11 +148,14 @@ def xla_dot_order(m: int, k: int, n: int) -> DotOrder:
       rows below the last multiple of 8, the first _PAIRED[n] columns sum
       as two partial sums (products rounded, then added); every other
       result is one chain.  (Checked at m 8-63, 100, 128, 200, 1000-1007.)
-    - m <= 50 with one chain over k and n > 16: the columns go in groups
-      of 64, and each group's k-blocks hold 32768 // (its width)
-      products.  (Checked at m 20-38 with k 800-1100 and n 17-200, and at
-      m 10 with n up to 64; at m 10 with n 100 XLA sums otherwise: not
-      modelled.)"""
+    - m 2-50 with one chain over k and n > 16: the columns go in groups of
+      `_column_group(m, k)` (64 at k 1100 and more, up to n at small k),
+      and each group's k-blocks hold 32768 // (its width) products; for
+      the m of `_UNFUSED_M` a last group of at most 8 columns (after a
+      full one) sums without FMAs, one chain of rounded products.  (Read off
+      the boundaries of G at every m 2-50 and k 5-1300; checked at m 2-50,
+      k 513-2048, n 65-1200 and at random shapes up to k and n 2100.
+      m = 1 sums otherwise: not modelled.)"""
     lanes, k_block = xla_dot_plan(m, k, n)
     uniform = ((lanes, k_block),) * n
     if (k in (2, 3) and 3 <= n <= 8
@@ -145,9 +166,14 @@ def xla_dot_order(m: int, k: int, n: int) -> DotOrder:
         return DotOrder(cols, m // 8 * 8, ((1, k_block),) * n)
     if (m <= _SMALL_M and lanes == 1 and n > _SMALL_M_MAX_N
             and max(m, n, k) > _XLA_OWN_DOT_MAX):
-        g = _SMALL_M_COLUMN_GROUP
-        cols = tuple((1, 32768 // (min(n, j // g * g + g) - j // g * g))
-                     for j in range(n))
+        g = _column_group(m, k)
+        cols = []
+        for lo in range(0, n, g):
+            width = min(n, lo + g) - lo
+            unfused = (lo and m in _UNFUSED_M
+                       and width <= _UNFUSED_MAX_WIDTH)
+            cols += [(0 if unfused else 1, 32768 // width)] * width
+        cols = tuple(cols)
         return DotOrder(cols, m, cols)
     return DotOrder(uniform, m, uniform)
 
@@ -167,7 +193,8 @@ class Band(NamedTuple):
     lie side by side:
     idx, weight: (2, slots, period) int32 / float32, the tap's input index
         within the period's window (-1: no tap) and its weight.
-    lanes_of: (2, period) int32, the partial sums of each output's tree.
+    lanes_of: (2, period) int32, the partial sums of each output's tree
+        (0: one chain of rounded products, added without FMAs).
     k_block: (2, period) int32, the k-block length of each output's dot.
     complete: (2, period) uint8, 1 where every partial sum of every
         k-block of XLA's dot holds a tap (else a zero result is +0).
@@ -175,7 +202,9 @@ class Band(NamedTuple):
         sum past its last tap (-1: none), for the sign of a zero result.
     src: the dot's k (the contracted length of one period's window).
     small_weight: 1 if a weight lies under 2**-10 in magnitude (then even
-        inputs of 2**-60 and more can make results under 2**-126)."""
+        inputs of 2**-60 and more can make results under 2**-126).
+    unfused: 1 if an output has 0 lanes (the kernel then builds the
+        no-FMA step, which the other bands never run)."""
     idx: torch.Tensor
     weight: torch.Tensor
     lanes_of: torch.Tensor
@@ -190,6 +219,7 @@ class Band(NamedTuple):
     row_split: int
     src: int
     small_weight: int
+    unfused: int
 
     @property
     def slots(self) -> int:
@@ -220,6 +250,7 @@ def _order_tables(w: np.ndarray, orders: Sequence[Tuple[int, int]]):
     per_out = []
     for o in range(period):
         lanes, k_block = orders[o]
+        lanes = max(lanes, 1)           # 0: one chain without FMAs
         blocks = {}
         for lo in range(0, src, k_block):
             hi = min(src, lo + k_block)
@@ -240,7 +271,7 @@ def _band_host(w: np.ndarray, tables: Sequence[Sequence[Tuple[int, int]]]):
     sequence of per-output (lanes, k_block) orders."""
     period, src = w.shape
     laid = [_order_tables(w, orders) for orders in tables]
-    lanes = max(l for orders in tables for l, _ in orders)
+    lanes = max(max(l, 1) for orders in tables for l, _ in orders)
     keep = [[[lo for lo, (ch, tl, _, _) in out.items()
               if any(ch) or any(t is not None for t in tl)] or [0]
              for out in per_out] for per_out in laid]
@@ -258,6 +289,7 @@ def _band_host(w: np.ndarray, tables: Sequence[Sequence[Tuple[int, int]]]):
         ti = min(t, len(tables) - 1)
         for o in range(period):
             lanes_of[t, o], k_block[t, o] = tables[ti][o]
+            stride = max(lanes_of[t, o], 1)
             out = laid[ti][o]
             ok = True
             for j, lo in enumerate(keep[ti][o]):
@@ -266,9 +298,8 @@ def _band_host(w: np.ndarray, tables: Sequence[Sequence[Tuple[int, int]]]):
                 for c, chain in enumerate(chains):
                     idx[t, o, base + c * steps:
                         base + c * steps + len(chain)] = chain
-                    if chain and chain[-1] + lanes_of[t, o] < main_end:
-                        trail[t, o, j * lanes + c] = \
-                            chain[-1] + lanes_of[t, o]
+                    if chain and chain[-1] + stride < main_end:
+                        trail[t, o, j * lanes + c] = chain[-1] + stride
                 for c, k in enumerate(tail):
                     if k is not None:
                         idx[t, o, base + lanes * steps + c] = k
@@ -296,7 +327,7 @@ def make_band(w: np.ndarray, m: int, device: torch.device,
     host = _band_host(np.ascontiguousarray(w, np.float32),
                       [cols] if order.row_split >= m else [cols, tail])
     idx, weight, lanes_of, k_block, complete, trail, n_blocks, steps = host
-    lanes = max(l for l, _ in cols + tail)
+    lanes = max(max(l, 1) for l, _ in cols + tail)
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
@@ -305,4 +336,5 @@ def make_band(w: np.ndarray, m: int, device: torch.device,
                 dev(lanes_of), dev(k_block), dev(complete.astype(np.uint8)),
                 dev(trail.transpose(0, 2, 1)), n_blocks, lanes, steps,
                 period, stride, order.row_split, src,
-                int(bool((np.abs(w[w != 0]) < 2.0 ** -10).any())))
+                int(bool((np.abs(w[w != 0]) < 2.0 ** -10).any())),
+                int(bool((lanes_of == 0).any())))

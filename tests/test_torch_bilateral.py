@@ -78,6 +78,37 @@ def test_bytes_uniform_float_200x300():
     check_batch_matches_jax("YCoCg", (4, 128), _uniform_images(), u8=False)
 
 
+def test_space_times_colour_is_the_weight_table():
+    """The kernel's weight f32(s_w[t] * c_w[|d|]), one float32 product of
+    the tap's space weight and the colour weight, equals the (taps, 256)
+    table the taps took before, for every tap and every |d|."""
+    import math
+    sw = [math.exp((dy * dy + dx * dx) * (-0.5 / (75.0 * 75.0)))
+          for dy, dx in tc.disk(2)]
+    cw = tc._color_weights(75.0, torch.device("cpu"))
+    table = torch.tensor(np.asarray(sw, np.float32))[:, None] * cw
+    space = np.asarray(tc._bilateral_taps(5, 75.0, 75.0), np.float32)
+    assert len(space) == 13 and len(set(space.tolist())) == 4
+    each = np.array([[space[t] * np.float32(c) for c in cw.numpy()]
+                     for t in range(13)], np.float32)
+    np.testing.assert_array_equal(each.view(np.uint32),
+                                  table.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 9), (9, 1), (3, 4), (2, 2),
+                                   (5, 7), (37, 53)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_bilateral_unpadded_planes(shape):
+    """kernels.bilateral takes the unpadded planes and pads them itself
+    (BORDER_REFLECT_101, reflected more than once on planes narrower than
+    the disk): bitwise with jax.jit(jax.vmap(bilateral_u8))."""
+    x = np.random.default_rng(sum(shape)).integers(0, 256, (3,) + shape,
+                                                   dtype=np.uint8)
+    want = np.asarray(jax.jit(jax.vmap(jc.bilateral_u8))(x))
+    np.testing.assert_array_equal(tc.bilateral_u8(torch.from_numpy(x))
+                                  .numpy(), want)
+
+
 def test_bilateral_wrapper_checks(monkeypatch):
     """kernels.bilateral routed to the card (forced here on CPU tensors, the
     launch recorded instead of made) raises before any launch for inputs
@@ -87,16 +118,18 @@ def test_bilateral_wrapper_checks(monkeypatch):
     launched = []
     monkeypatch.setattr(kernels, "_route", lambda name, device: True)
     monkeypatch.setattr(kernels, "_launch", lambda *a: launched.append(a))
-    offs, weights = tc._bilateral_taps(5, 75.0, 75.0, cpu)
-    padded = torch.zeros((2, 20, 30), dtype=torch.uint8)
+    space = tc._bilateral_taps(5, 75.0, 75.0)
+    colour = tc._color_weights(75.0, cpu)
+    planes = torch.zeros((2, 20, 30), dtype=torch.uint8)
     with pytest.raises(TypeError):
-        kernels.bilateral(padded.to(torch.int32), weights, offs, 2)
+        kernels.bilateral(planes.to(torch.int32), colour, space, 2)
     with pytest.raises(ValueError):
-        kernels.bilateral(padded, weights[:, :128].contiguous(), offs, 2)
-    many = torch.zeros((30, 2), dtype=torch.int32)
-    with pytest.raises(ValueError, match="29 taps"):
-        kernels.bilateral(padded, torch.ones((30, 256)), many, 2)
+        kernels.bilateral(planes, colour[:128].contiguous(), space, 2)
+    with pytest.raises(ValueError, match="radius 0-3"):
+        kernels.bilateral(planes, colour, (1.0,) * 29, 2)
+    with pytest.raises(ValueError, match="radius 0-3"):
+        kernels.bilateral(planes, colour, (1.0,) * 49, 4)
     assert not launched
-    out = kernels.bilateral(padded, weights, offs, 2)
-    assert out.shape == (2, 16, 26) and len(launched) == 1
+    out = kernels.bilateral(planes, colour, space, 2)
+    assert out.shape == (2, 20, 30) and len(launched) == 1
     assert launched[0][0] == "aej_bilateral"

@@ -229,3 +229,46 @@ def test_card_pass_takes_every_codec_size(s):
         kernels.check_card_dense(3, s, 1024)
     with pytest.raises(ValueError):
         kernels.check_card_dense(1, s, 2 ** 31)
+
+
+def _non_finite(shape, seed):
+    """Random values with NaNs of random payloads and signs (several in a
+    block row) and infinities of both signs."""
+    rng = np.random.default_rng(seed)
+    x = rng.random(shape, dtype=np.float32) - np.float32(0.3)
+    bits = (rng.integers(1, 1 << 22, shape) | 0x7F800000
+            | (rng.integers(0, 2, shape) << 31)).astype(np.uint32)
+    pick = rng.random(shape)
+    x = np.where(pick < 0.04, bits.view(np.float32), x)
+    x = np.where((pick >= 0.04) & (pick < 0.05), np.float32(np.inf), x)
+    return np.where((pick >= 0.05) & (pick < 0.06), np.float32(-np.inf),
+                    x).astype(np.float32)
+
+
+@pytest.mark.parametrize("s", [2, 8, 32, 128])
+def test_nan_payloads_bitwise(s):
+    """Several NaNs and infinities in one block row: which NaN XLA's dots
+    pass on (kernels.nan_model), in every DCT form, payloads included."""
+    side = max(s, 16)
+    shape = (2, 2 * side, 2 * side) if s < 128 else (1, s, 2 * s)
+    x = _non_finite(shape, s)
+    _assert_bitwise(dct.dct2_dense(torch.from_numpy(x), s).numpy(),
+                    np.asarray(jax.jit(lambda v: jdct.dct2_dense(v, s))(x)))
+    x6 = x.reshape(shape[0], shape[1] // s, s, shape[2] // s, s)
+    _assert_bitwise(dct.idct2_dense(torch.from_numpy(x6)).numpy(),
+                    np.asarray(jax.jit(jdct.idct2_dense)(x6)))
+    b = x.reshape(-1, s, s)[:8]
+    _assert_bitwise(dct.dct2(torch.from_numpy(b)).numpy(),
+                    np.asarray(jax.jit(jdct.dct2)(b)))
+    _assert_bitwise(dct.idct2(torch.from_numpy(b)).numpy(),
+                    np.asarray(jax.jit(jdct.idct2)(b)))
+    add = _non_finite(x.shape, s + 1)
+    scale, mid = np.float32(0.8), np.float32(0.5)
+
+    def planes(v, a):
+        y = jdct.idct2_dense(v.reshape(x6.shape)).reshape(v.shape)
+        return (a + y) / scale + mid
+    got = dct.idct2_planes(torch.from_numpy(x), s, add=torch.from_numpy(add),
+                           affine=(torch.tensor([np.float32(1) / scale]),
+                                   torch.tensor([mid]), 1)).numpy()
+    _assert_bitwise(got, np.asarray(jax.jit(planes)(x, add)))

@@ -34,3 +34,16 @@ def test_decode_batch_bitwise_200x300(space):
     ours = at.decode_batch(blobs, device="cpu")
     for a, b in zip(_bits(ours), _bits(jdecode(blobs))):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("blocks", [(4, 16), (4, 8)], ids=["4-16", "4-8"])
+def test_decode_batch_bitwise_1200x20(blocks):
+    """A thin image: decode's upsample is the dot (chroma width, 600) @
+    (600, 1200), which XLA sums in column groups of 128 with k-blocks of
+    32768 // their width (ops/xla_dot.xla_dot_order)."""
+    arrays = _arrays(1200, 20, 1, seed=13)
+    blobs = jencode([JImage.from_array(a, extension=".png") for a in arrays],
+                    JConfig("YCoCg", (20, 80), blocks, entropy_level=-1))
+    ours = at.decode_batch(blobs, device="cpu")
+    for a, b in zip(_bits(ours), _bits(jdecode(blobs))):
+        np.testing.assert_array_equal(a, b)

@@ -58,6 +58,29 @@ def test_dense_resize_bitwise(src, dst, kind, inputs):
     _assert_bitwise(_planes(src, inputs, sum(src)), dst, kind)
 
 
+# thin planes, whose first dot has few rows (the plane's width) and a long
+# k: decode's upsample of a 1200x20 image and its kin; and an area resize
+# whose dot's last 8 columns sum without FMAs (m = 2)
+THIN = [((1, 600, 10), (1200, 20), "linear"), ((1, 800, 5), (1600, 10),
+                                               "linear"),
+        ((1, 10, 600), (20, 1200), "linear"), ((1, 512, 8), (1024, 16),
+                                               "linear"),
+        ((2, 1100, 1), (520, 1), "area")]
+
+
+@pytest.mark.parametrize("inputs", ["float", "u8"])
+@pytest.mark.parametrize("shape,dst,kind", THIN, ids=[
+    f"{k}-{s[1]}x{s[2]}-{d[0]}x{d[1]}" for s, d, k in THIN])
+def test_thin_resize_bitwise(shape, dst, kind, inputs):
+    rng = np.random.default_rng(sum(shape))
+    if inputs == "float":
+        img = rng.random(shape, dtype=np.float32)
+    else:
+        img = (rng.integers(0, 256, shape).astype(np.float32)
+               / np.float32(255))
+    _assert_bitwise(img, dst, kind)
+
+
 @pytest.mark.parametrize("src,dst,kind", CASES[:1] + CASES[5:6],
                          ids=IDS[:1] + IDS[5:6])
 @pytest.mark.parametrize("scale", [1.0, 1.0 + 2.0 ** -10, 2.0],
@@ -193,7 +216,13 @@ def test_non_finite_pixels_spread_as_in_xla(src, dst, kind):
 # multiple of 8 sum as two partial sums), through the band path.
 DOTS = [(38, 1100, 33), (20, 800, 100), (38, 1100, 200), (20, 700, 10),
         (100, 2, 5), (100, 3, 8), (51, 2, 7), (1003, 3, 6), (24, 2, 5),
-        (20, 2, 5), (17, 3, 4)]
+        (20, 2, 5), (17, 3, 4),
+        # thin, long dots: XLA's column groups of 64 to n and their
+        # k-blocks, and the last columns that sum without FMAs
+        (10, 600, 1200), (2, 600, 1200), (20, 600, 1200), (30, 600, 1200),
+        (10, 513, 1200), (10, 800, 1200), (5, 800, 1600), (10, 600, 65),
+        (10, 600, 100), (6, 960, 200), (2, 1100, 65), (17, 700, 72),
+        (42, 300, 1000)]
 
 
 @pytest.mark.parametrize("m,k,n", DOTS, ids=[f"{m}x{k}x{n}" for m, k, n in
@@ -211,3 +240,30 @@ def test_dot_order_past_the_measured_domain(m, k, n):
                               1)[0].T.numpy()
     np.testing.assert_array_equal(np.ascontiguousarray(got).view(np.uint32),
                                   want.view(np.uint32))
+
+
+@pytest.mark.parametrize("m,k,n,unfused", [(2, 1100, 65, 1),
+                                            (6, 960, 200, 1),
+                                            (10, 600, 1200, 0),
+                                            (42, 300, 1000, 0)])
+def test_band_flags_its_unfused_outputs(m, k, n, unfused):
+    # the kernel builds the no-FMA step only for bands flagged so
+    from aejpeg_tpu_torch.ops.xla_dot import make_band
+    band = make_band(np.ones((n, k), np.float32), m, torch.device("cpu"))
+    assert band.unfused == unfused
+    assert band.unfused == int(bool((band.lanes_of == 0).any()))
+
+
+@pytest.mark.parametrize("src,dst,kind",
+                         [((37, 53), (19, 27), "area"),
+                          ((19, 27), (37, 53), "linear"),
+                          ((600, 10), (1200, 20), "linear"),
+                          ((100, 2), (201, 4), "linear")],
+                         ids=["area-37x53", "linear-19x27", "thin-600x10",
+                              "paired-100x2"])
+def test_nan_payloads_bitwise(src, dst, kind):
+    """Several NaNs and infinities in one dot row (a NaN or infinity at a
+    zero weight too): which NaN XLA's dot passes on (kernels.nan_model),
+    payloads included."""
+    from test_torch_dct import _non_finite
+    _assert_bitwise(_non_finite((2,) + src, sum(src)), dst, kind)

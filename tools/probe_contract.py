@@ -1,9 +1,9 @@
-"""Phase 2 of chip_smoke.py for the XLA-ordered contraction kernels alone
-(csrc/banded_resize.cu: `banded_resize` and `dct2d`): each against its
-plain version on the card, bitwise, timed beside its bound and the route
-it replaced.
+"""Phase 2 of chip_smoke.py for the XLA-ordered contraction kernels
+(csrc/banded_resize.cu: `banded_resize` and `dct2d`) and the bilateral
+filter (csrc/bilateral.cu) alone: each against its plain version on the
+card, bitwise, timed beside its bound and the route it replaced.
 
-    python3 tools/probe_contract.py [--quick] [--kernels NAME,...]
+    python3 tools/probe_contract.py [--quick | --path] [--kernels NAME,...]
                                     [--csrc DIR ...] [--devices I,J,...]
     python3 tools/probe_contract.py --compare [--csrc DIR ...]
                                     [--two-pass DIR]
@@ -11,14 +11,28 @@ it replaced.
 The cases, timings and bounds are chip_smoke.py's (`kernel_cases`,
 `check_kernels`); timed runs start with chip_smoke's `warm_card`.
 --quick: the cases off the main path only (small, odd and special
-shapes), untimed.  --kernels: a subset of banded_resize,dct2d.  --csrc
-DIR: build the kernels from the sources in DIR instead of the package's
-csrc/; given several times, each directory in turn in one process, so
+shapes), untimed; --path: the cases on it only (timed), so that an
+earlier source that fails a newer off-path case can still be timed.
+--kernels: a subset of banded_resize,dct2d,bilateral.  --csrc DIR: build
+the kernels from the sources in DIR (into DIR/build) instead of the
+package's csrc/; given several times, each directory in turn in one process, so
 that a variant of a source and the package's are timed on one card.
 --devices: the checks on each of these cards in turn, in one process (a
 kernel's launch set-up holds per card).  Prints one JSON line per source
 directory and card; exits 1 when a kernel fails to launch or differs
 from its plain version.
+
+With bilateral among the kernels (and no --quick), the line also gives
+`bilateral_stage_a`, the kernel on the planes stage A really filters
+(the blurred luma and chroma of phase 3's images, recorded from one
+`encode_batch` each), every call bitwise to the plain version, timed as
+phase 2 times its cases; and `bilateral_sass`, the SASS instructions of
+the radius-2 kernel (`cuobjdump -sass` of the built library, the listing
+written beside it) and their count per output pixel.  To time a variant
+of csrc/bilateral.cu against it, copy csrc/ twice under the ignored
+checkout/ (say checkout/base and checkout/var), edit checkout/var, and
+pass --kernels bilateral --csrc checkout/base --csrc checkout/var --csrc
+checkout/var --csrc checkout/base (the two in turns).
 
 --compare: instead, for each of chip_smoke's dct2d cases on the main
 path (`dct_cases`: the bench planes, block sizes 4-128, both
@@ -39,6 +53,7 @@ and a line of their sums.
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import statistics
@@ -50,7 +65,9 @@ sys.path.insert(0, _ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-NAMES = ("banded_resize", "dct2d")
+NAMES = ("banded_resize", "dct2d", "bilateral")
+# the output pixels a thread of csrc/bilateral.cu computes (kRows x kCols)
+BILATERAL_PIXELS = 4 * 4
 
 
 def use_sources(csrc):
@@ -113,6 +130,76 @@ def two_pass(fn, x, band, quant=None, add=None, affine=None):
            (add.data_ptr(), rcp.data_ptr(), mid.data_ptr(), group,
             rcp.shape[0]))
     return out
+
+
+def stage_a_calls(dev):
+    """The bilateral calls of stage A for phase 3's images (42 x 512x768
+    and 2 x 200x300, YCoCg 4:2:0), one encode_batch each: [(planes,
+    colour, space, radius)]."""
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch.ops import canny
+    seen = []
+    real = canny.bilateral
+
+    def record(planes, colour, space, radius):
+        seen.append((planes.clone(), colour, list(space), radius))
+        return real(planes, colour, space, radius)
+    canny.bilateral = record
+    try:
+        cfg = at.CodecConfig("YCoCg", (20, 80), (4, 128), entropy_level=-1)
+        at.encode_batch(cs.synth_images(cs.BATCH, cs.H, cs.W, 0), cfg,
+                        device=dev)
+        at.encode_batch(cs.synth_images(2, *cs.SMALL, 1), cfg, device=dev)
+    finally:
+        canny.bilateral = real
+    return seen
+
+
+def stage_a_bilateral(calls):
+    """The bilateral kernel on stage A's recorded calls: each bitwise to
+    the plain version, then timed; returns the sums."""
+    import torch
+    from aejpeg_tpu_torch.ops import kernels as K
+    tot = {"ms": 0.0, "device_ms": 0.0, "calls": len(calls)}
+    for planes, colour, space, radius in calls:
+        run = functools.partial(K.bilateral, planes, colour, space, radius)
+        if not torch.equal(run(), K.bilateral_plain(planes, colour, space,
+                                                    radius)):
+            raise AssertionError(f"bilateral: stage A planes "
+                                 f"{tuple(planes.shape)} differ from the "
+                                 f"plain version")
+        ms = cs.cuda_ms(run)
+        dms = cs.device_ms(run, cs.KERNEL_NAMES["bilateral"])
+        cs.log(f"  bilateral stage A {tuple(planes.shape)}: bitwise equal; "
+               f"kernel {ms:.4f} ms (device "
+               f"{'not measured' if dms is None else f'{dms:.4f}'} ms)")
+        tot["ms"] += ms
+        tot["device_ms"] = (None if dms is None or tot["device_ms"] is None
+                            else tot["device_ms"] + dms)
+    return tot
+
+
+def bilateral_sass():
+    """SASS instructions of bilateral_kernel<2> in the built library, and
+    per output pixel; writes the listing beside the library."""
+    import shutil
+    from aejpeg_tpu_torch.ops import _build
+    lib = _build.library_path("bilateral.cu")
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+    body, inside = [], False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "bilateral_kernel" in line and "ILi2E" in line
+        elif inside and line.lstrip().startswith("/*") and "*/" in line \
+                and line.split("*/", 1)[1].strip():
+            body.append(line)
+    with open(lib + ".radius2.sass", "w") as f:
+        f.write("\n".join(body))
+    return {"instructions": len(body),
+            "per_pixel": len(body) / BILATERAL_PIXELS}
 
 
 ROUNDS = 2      # of the routes in turns, each A B C C B A
@@ -186,6 +273,7 @@ def compare_routes(dev, csrcs, two_pass_dir):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--path", action="store_true")
     ap.add_argument("--kernels", default=",".join(NAMES))
     ap.add_argument("--csrc", action="append")
     ap.add_argument("--devices", default="0")
@@ -211,6 +299,7 @@ def main(argv=None) -> int:
             sums = compare_routes(dev, csrcs, args.two_pass)
         print(json.dumps({"compare_summary": sums}), flush=True)
         return 0
+    stage_a = {}     # stage A's bilateral calls, recorded once a card
     for csrc in args.csrc or [None]:
         if csrc is not None:
             use_sources(csrc)
@@ -221,7 +310,14 @@ def main(argv=None) -> int:
                 with torch.cuda.device(dev):
                     if not args.quick:
                         cs.warm_card(dev)
-                    summary = cs.check_kernels(dev, names, quick=args.quick)
+                    summary = cs.check_kernels(dev, names, quick=args.quick,
+                                               path=args.path)
+                    if "bilateral" in names and not args.quick:
+                        if d not in stage_a:
+                            stage_a[d] = stage_a_calls(dev)
+                        summary["bilateral_stage_a"] = stage_a_bilateral(
+                            stage_a[d])
+                        summary["bilateral_sass"] = bilateral_sass()
             except (AssertionError, RuntimeError) as e:
                 print(json.dumps({"csrc": csrc, "device": d, "ok": False,
                                   "error": str(e)}), flush=True)

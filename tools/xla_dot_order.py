@@ -3,6 +3,8 @@ dot, and read XLA's values the port takes as constants.
 
     python3 tools/xla_dot_order.py check M K N [M K N ...]
     python3 tools/xla_dot_order.py scan          # small-m grid, k 8 9 37 100
+    python3 tools/xla_dot_order.py thin [M,...]  # thin planes: m 2-50, k > 512
+    python3 tools/xla_dot_order.py nan           # NaN payloads vs jax.jit
     python3 tools/xla_dot_order.py resize [ROOT] # resize2d vs jax.jit
     python3 tools/xla_dot_order.py dct [--bench] # the DCTs vs jax.jit
     python3 tools/xla_dot_order.py ictcp [N]     # ICtCp near black
@@ -18,6 +20,16 @@ then the tree sum of the tail products, all flushed to zero below 2**-126.
 It prints the order and the count of results whose bits differ (0 when the
 order is right).  `scan` prints, for a grid of small m, the lane count
 whose order reproduces XLA's bits ('X' if none of 1, 2, 4 does).
+`thin` runs `check` over the thin, long dots of a narrow image's resize:
+m 2-50 (or the m given), k 513, 600, 700, 1100, 1500, 2048 and n 65,
+100, 128, 200, 1200 (XLA's column groups and their k-blocks, ROADMAP
+Queue 3 item 12); it prints each shape's count and exits 1 if any differ.
+`nan` counts the results of the port's DCTs (dct2_dense, idct2_dense,
+dct2, idct2, idct2_planes with its sum and denormalize) at s 2-128 and of
+resize2d at the test shapes whose bits differ from jax.jit's on planes
+with NaNs of random payloads and signs (several in a dot row) and
+infinities of both signs: which NaN XLA's dot passes on
+(ops/kernels.nan_model; ROADMAP Queue 3 item 11).
 `resize` counts the values of the port's resize2d (of the checkout at
 ROOT, default this one) whose bits differ from jax.jit of the JAX
 package's, on two random float planes and two u8/255 planes of each of
@@ -61,13 +73,16 @@ def xla_dot(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 def ordered_dot(a: np.ndarray, b: np.ndarray, lanes: int,
                 k_block: int) -> np.ndarray:
-    """(M, K) @ (K, N) summed in the order a plan names, dense."""
+    """(M, K) @ (K, N) summed in the order a plan names, dense (lanes 0:
+    one chain of rounded products, added in order)."""
     import torch
     from aejpeg_tpu_torch.ops.kernels import _lane_tree
     from aejpeg_tpu_torch.ops.libm import fma32_exact, ftz
     x = ftz(torch.from_numpy(a))
     w = torch.from_numpy(b)
     k = a.shape[1]
+    unfused = lanes == 0
+    lanes = max(lanes, 1)
     out = None
     tail = None
     for lo in range(0, k, k_block):
@@ -77,7 +92,10 @@ def ordered_dot(a: np.ndarray, b: np.ndarray, lanes: int,
         for c in range(lanes):
             acc = torch.zeros((a.shape[0], b.shape[1]))
             for j in range(lo + c, main, lanes):
-                acc = ftz(fma32_exact(x[:, j:j + 1], w[j:j + 1], acc))
+                if unfused:
+                    acc = ftz(acc + ftz(x[:, j:j + 1] * w[j:j + 1]))
+                else:
+                    acc = ftz(fma32_exact(x[:, j:j + 1], w[j:j + 1], acc))
             chains.append(acc)
         blk = _lane_tree(chains)
         out = blk if out is None else ftz(out + blk)
@@ -109,7 +127,8 @@ def check(m: int, k: int, n: int, seed: int = 0):
 
 def _orders(order) -> str:
     cols = sorted(set(order.columns))
-    text = ", ".join(f"lanes {l} k-block {kb}" for l, kb in cols)
+    text = ", ".join(f"lanes {l} k-block {kb}" if l else
+                     f"no FMA k-block {kb}" for l, kb in cols)
     if order.row_split < 10 ** 9 and set(order.tail_columns) != set(
             order.columns):
         text += (f"; rows from {order.row_split}: "
@@ -129,6 +148,9 @@ def lanes_that_fit(m: int, k: int, n: int, seed: int = 0) -> str:
             return str(lanes)
     return "X"
 
+
+THIN_K = (513, 600, 700, 1100, 1500, 2048)
+THIN_N = (65, 100, 128, 200, 1200)
 
 RESIZES = (((37, 53), (19, 27), "area"), ((128, 192), (128, 48), "area"),
            ((101, 256), (51, 128), "area"),
@@ -208,6 +230,65 @@ def dct_diffs(bench: bool) -> int:
     return 1 if bad else 0
 
 
+def non_finite(shape, seed):
+    """Random values with 4% NaNs of random payloads and signs and 1% of
+    each infinity."""
+    rng = np.random.default_rng(seed)
+    x = rng.random(shape, dtype=np.float32) - np.float32(0.3)
+    bits = (rng.integers(1, 1 << 22, shape) | 0x7F800000
+            | (rng.integers(0, 2, shape) << 31)).astype(np.uint32)
+    pick = rng.random(shape)
+    x = np.where(pick < 0.04, bits.view(np.float32), x)
+    x = np.where((pick >= 0.04) & (pick < 0.05), np.float32(np.inf), x)
+    return np.where((pick >= 0.05) & (pick < 0.06), np.float32(-np.inf),
+                    x).astype(np.float32)
+
+
+def nan_diffs() -> int:
+    jax = _jax()
+    import torch
+    from aejpeg_tpu.ops import dct as jd
+    from aejpeg_tpu.ops import resize as jr
+    from aejpeg_tpu_torch.ops import dct as td
+    from aejpeg_tpu_torch.ops import resize as tr
+    bad = 0
+    for s in (2, 4, 8, 16, 32, 64, 128):
+        side = max(s, 16)
+        shape = (2, 2 * side, 2 * side) if s < 64 else (1, s, 2 * s)
+        x = non_finite(shape, s)
+        x6 = x.reshape(shape[0], shape[1] // s, s, shape[2] // s, s)
+        b = x.reshape(-1, s, s)[:8]
+        add = non_finite(shape, s + 1)
+        rcp, mid = np.float32(1) / np.float32(0.8), np.float32(0.5)
+
+        def planes(v, a):
+            y = jd.idct2_dense(v.reshape(x6.shape)).reshape(v.shape)
+            return (a + y) / np.float32(0.8) + mid
+        for name, got, want in (
+                ("dct2_dense", td.dct2_dense(torch.from_numpy(x), s),
+                 jax.jit(lambda v: jd.dct2_dense(v, s))(x)),
+                ("idct2_dense", td.idct2_dense(torch.from_numpy(x6)),
+                 jax.jit(jd.idct2_dense)(x6)),
+                ("dct2", td.dct2(torch.from_numpy(b)), jax.jit(jd.dct2)(b)),
+                ("idct2", td.idct2(torch.from_numpy(b)),
+                 jax.jit(jd.idct2)(b)),
+                ("idct2_planes + sum, denormalize", td.idct2_planes(
+                    torch.from_numpy(x), s, add=torch.from_numpy(add),
+                    affine=(torch.tensor([rcp]), torch.tensor([mid]), 1)),
+                 jax.jit(planes)(x, add))):
+            want = np.asarray(want)
+            bad += _dct_line(f"{name} s={s} ({int(np.isnan(want).sum())} "
+                             "NaN)", got.numpy(), want)
+    for src, dst, kind in RESIZES[:4] + (((600, 10), (1200, 20), "linear"),
+                                         ((100, 2), (201, 4), "linear")):
+        x = non_finite((2,) + src, sum(src))
+        want = np.asarray(jax.jit(lambda v: jr.resize2d(v, dst, kind))(x))
+        bad += _dct_line(f"resize2d {src} -> {dst} {kind}",
+                         tr.resize2d(torch.from_numpy(x), dst, kind).numpy(),
+                         want)
+    return 1 if bad else 0
+
+
 def ictcp_diffs(n: int) -> int:
     jax = _jax()
     import torch
@@ -241,6 +322,8 @@ def main(argv) -> int:
         return 1 if bad else 0
     if argv[0] == "dct":
         return dct_diffs("--bench" in argv[1:])
+    if argv[0] == "nan":
+        return nan_diffs()
     if argv[0] == "ictcp":
         return ictcp_diffs(int(argv[1]) if len(argv) > 1 else 200_000)
     if argv[0] == "scan":
@@ -252,6 +335,19 @@ def main(argv) -> int:
                       + " ".join(lanes_that_fit(m, k, n) for n in ns),
                       flush=True)
         return 0
+    if argv[0] == "thin":
+        ms = (list(map(int, argv[1].split(","))) if len(argv) > 1
+              else range(2, 51))
+        bad = 0
+        for m in ms:
+            for k in THIN_K:
+                for n in THIN_N:
+                    order, diff = check(m, k, n)
+                    print(f"({m}, {k}) @ ({k}, {n}): {_orders(order)}: "
+                          f"{diff} results differ", flush=True)
+                    bad += diff > 0
+        print(f"{bad} shapes differ", flush=True)
+        return 1 if bad else 0
     if argv[0] == "resize":
         resize_diffs(argv[1] if len(argv) > 1 else _ROOT)
         return 0
