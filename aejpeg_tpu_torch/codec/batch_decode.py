@@ -32,6 +32,7 @@ from ..io.container import ContainerReader
 from ..io.image import ImageData
 from ..native import entropy as native_entropy
 from ..ops import dct, quant, resize
+from ..utils.log import span, stages
 from .batch_encode import pinned_buffer, require_native
 from .dense import BatchSpec
 from .tables import device_tables, spec_for
@@ -199,10 +200,10 @@ def parse_into_arenas(payloads, spec: BatchSpec, arenas, b: int) -> None:
     """parse_native_into_tables into per-shard host arenas (host_arenas of
     b // len(arenas) images each)."""
     shapes = _section_shapes(spec, b // len(arenas))
-    parse_native_into_tables(
-        payloads, spec, [(_carve(t.numpy(), shapes, 0),
-                          _carve(m.numpy(), shapes, 1)) for t, m in arenas],
-        b)
+    shards = [(_carve(t.numpy(), shapes, 0), _carve(m.numpy(), shapes, 1))
+              for t, m in arenas]
+    with span("parse.native"):
+        parse_native_into_tables(payloads, spec, shards, b)
 
 
 def _device_shard(tbl_host: torch.Tensor, msk_host: torch.Tensor,
@@ -213,12 +214,16 @@ def _device_shard(tbl_host: torch.Tensor, msk_host: torch.Tensor,
     still being computed.  mark(name, sync) records 'push'."""
     spec = spec_for(cfg, shape)
     shapes = _section_shapes(spec, b)
-    tables = _carve(tbl_host.to(dev), shapes, 0)
-    masks = _carve(msk_host.to(dev), shapes, 1)
+    with span("sync.upload"):
+        tables = _carve(tbl_host.to(dev), shapes, 0)
+        masks = _carve(msk_host.to(dev), shapes, 1)
     if mark is not None:
         mark("push", sync=True)
     consts = device_tables(cfg, shape, None, dev)
     return _stage_d(tables, masks, spec, consts, cfg, shape, b)
+
+
+DECODE_STAGES = ("parse", "push", "device", "pull")
 
 
 def decode_batch(blobs: List[bytes],
@@ -230,9 +235,11 @@ def decode_batch(blobs: List[bytes],
 
     device: None means CUDA (raises when CUDA is absent); pass "cpu" for
     the plain PyTorch path.  Stage timings: 'parse' (inflate + replay +
-    dense scatter, C++), 'push', 'device', 'pull'.  materialize=False
-    returns the (B, H, W, 3) float32 device tensor and the metadata list
-    instead of host ImageData (no device->host image copy).
+    dense scatter, C++), 'push', 'device', 'pull'; traced (utils/log.py),
+    each stage is also a span `decode.<stage>` that ends at the same
+    point.  materialize=False returns the (B, H, W, 3) float32 device
+    tensor and the metadata list instead of host ImageData (no
+    device->host image copy).
 
     With `mesh` (parallel.make_mesh) instead of `device`, each shard of
     whole images (over the mesh's `data_axes`, default every axis) is
@@ -248,6 +255,8 @@ def decode_batch(blobs: List[bytes],
     require_native()
     marks = [time.perf_counter()]
     devices = []
+    spans = stages("decode", DECODE_STAGES if mesh is None
+                   else DECODE_STAGES[:1] + DECODE_STAGES[2:])
 
     def mark(name, sync=False):
         if timings is not None:
@@ -257,54 +266,61 @@ def decode_batch(blobs: List[bytes],
                         torch.cuda.synchronize(d)
             marks.append(time.perf_counter())
             timings[name] = timings.get(name, 0.0) + marks[-1] - marks[-2]
+        spans.mark(name)
 
-    readers = [ContainerReader(blob) for blob in blobs]
-    metas = [r.metadata for r in readers]
-    m0 = metas[0]
-    key0 = (m0.height, m0.width, m0.color_space, m0.quality_min,
-            m0.quality_max, m0.block_size_min, m0.block_size_max)
-    for m in metas[1:]:
-        if (m.height, m.width, m.color_space, m.quality_min, m.quality_max,
-                m.block_size_min, m.block_size_max) != key0:
-            raise ValueError("decode_batch requires same-shape, "
-                             "same-settings containers")
-    cfg = CodecConfig(m0.color_space, (m0.quality_min, m0.quality_max),
-                      (m0.block_size_min, m0.block_size_max))
-    h, w = m0.height, m0.width
-    b = len(blobs)
-    spec = spec_for(cfg, (h, w))
-    if mesh is None:
-        devices.append(dev)
-        shard_devs = [dev]
-    else:
-        from ..parallel.batch import sharded_dense_decode_fn
-        device_fn, shard_devs = sharded_dense_decode_fn(cfg, (h, w), b,
-                                                        mesh, data_axes)
-        devices.extend(set(shard_devs))
-    b_loc = b // len(shard_devs)
-    arenas = [host_arenas(f"dec_{k}", spec, b_loc, d)
-              for k, d in enumerate(shard_devs)]
-    payloads = [[r.read_layer_raw() for _ in range(3)] for r in readers]
-    parse_into_arenas(payloads, spec, arenas, b)
-    mark("parse")
+    with spans:
+        with span("parse.containers"):
+            readers = [ContainerReader(blob) for blob in blobs]
+            metas = [r.metadata for r in readers]
+            payloads = [[r.read_layer_raw() for _ in range(3)]
+                        for r in readers]
+        m0 = metas[0]
+        key0 = (m0.height, m0.width, m0.color_space, m0.quality_min,
+                m0.quality_max, m0.block_size_min, m0.block_size_max)
+        for m in metas[1:]:
+            if (m.height, m.width, m.color_space, m.quality_min,
+                    m.quality_max, m.block_size_min,
+                    m.block_size_max) != key0:
+                raise ValueError("decode_batch requires same-shape, "
+                                 "same-settings containers")
+        cfg = CodecConfig(m0.color_space, (m0.quality_min, m0.quality_max),
+                          (m0.block_size_min, m0.block_size_max))
+        h, w = m0.height, m0.width
+        b = len(blobs)
+        spec = spec_for(cfg, (h, w))
+        if mesh is None:
+            devices.append(dev)
+            shard_devs = [dev]
+        else:
+            from ..parallel.batch import sharded_dense_decode_fn
+            device_fn, shard_devs = sharded_dense_decode_fn(
+                cfg, (h, w), b, mesh, data_axes)
+            devices.extend(set(shard_devs))
+        b_loc = b // len(shard_devs)
+        with span("parse.arenas"):
+            arenas = [host_arenas(f"dec_{k}", spec, b_loc, d)
+                      for k, d in enumerate(shard_devs)]
+        parse_into_arenas(payloads, spec, arenas, b)
+        mark("parse")
 
-    if mesh is None:
-        outs = [_device_shard(*arenas[0], cfg, (h, w), b, dev, mark)]
-    else:
-        outs = device_fn(arenas)
-    mark("device", sync=True)
-    if not materialize:
-        return (outs[0] if len(outs) == 1 else
-                torch.cat([o.to(shard_devs[0]) for o in outs])), metas
-    if all(o.device.type == "cpu" for o in outs):
-        arr = (outs[0].numpy() if len(outs) == 1
-               else np.concatenate([o.numpy() for o in outs]))
-    else:
-        host = torch.empty((b, h, w, 3), dtype=torch.float32,
-                           pin_memory=True)
-        for k, o in enumerate(outs):
-            host[k * b_loc:(k + 1) * b_loc].copy_(o)
-        arr = host.numpy()
-    mark("pull")
+        if mesh is None:
+            outs = [_device_shard(*arenas[0], cfg, (h, w), b, dev, mark)]
+        else:
+            outs = device_fn(arenas)
+        mark("device", sync=True)
+        if not materialize:
+            return (outs[0] if len(outs) == 1 else
+                    torch.cat([o.to(shard_devs[0]) for o in outs])), metas
+        with span("sync.pull"):
+            if all(o.device.type == "cpu" for o in outs):
+                arr = (outs[0].numpy() if len(outs) == 1
+                       else np.concatenate([o.numpy() for o in outs]))
+            else:
+                host = torch.empty((b, h, w, 3), dtype=torch.float32,
+                                   pin_memory=True)
+                for k, o in enumerate(outs):
+                    host[k * b_loc:(k + 1) * b_loc].copy_(o)
+                arr = host.numpy()
+        mark("pull")
     return [ImageData(arr[i], (h, w, 3), metas[i].extension)
             for i in range(b)]

@@ -39,6 +39,7 @@ from ..io.image import ImageData
 from ..native import entropy as native_entropy
 from ..ops import dct, kernels, resize
 from ..ops.canny import canny
+from ..utils.log import span, stages
 from . import quadtree as qt
 from .dense import BatchSpec
 from .tables import device_tables, spec_for
@@ -98,7 +99,8 @@ def _stage_a(batch: torch.Tensor, space: str,
         src = torch.stack([converted[..., i] for i in idxs], dim=1)
         layer = resize.resize2d(src, (lh, lw), "area")       # (b, k, lh, lw)
         if level_band is not None:
-            edges = canny(layer.reshape(b * k, lh, lw))
+            with span("stage_a.canny"):
+                edges = canny(layer.reshape(b * k, lh, lw))
             root = qt.root_size_for(lh, lw)
             cur = torch.zeros((b * k, root, root), dtype=torch.bool,
                               device=dev)
@@ -365,12 +367,14 @@ def _device_shard(host: np.ndarray, cfg: CodecConfig, shape, b: int,
     'push' and 'stage_a' times."""
     spec = spec_for(cfg, shape)
     tables = device_tables(cfg, shape, b, dev)
-    batch = torch.from_numpy(host).to(dev)
+    with span("sync.upload"):
+        batch = torch.from_numpy(host).to(dev)
     if mark is not None:
         mark("push", sync=True)
     group_planes, packed_bits = _stage_a(batch, cfg.color_space,
                                          level_band(cfg), spec)
-    levels = packed_bits.cpu().numpy()
+    with span("sync.levels"):
+        levels = packed_bits.cpu().numpy()
     if mark is not None:
         mark("stage_a")
     return levels, _stage_b(group_planes, spec, tables, b)
@@ -391,6 +395,9 @@ def carve_tables(flat, spec: BatchSpec, b: int):
     return dense, slow
 
 
+ENCODE_STAGES = ("push", "stage_a", "plans", "device", "pull", "assemble")
+
+
 def encode_batch(images: Sequence[ImageData], config: CodecConfig,
                  timings: Optional[Dict[str, float]] = None,
                  device=None, mesh=None, data_axes=None) -> List[bytes]:
@@ -402,7 +409,10 @@ def encode_batch(images: Sequence[ImageData], config: CodecConfig,
     'push' (host->device upload), 'stage_a' (device stage A up to the
     packed levels on the host), 'plans' (host quadtree planning, overlapped
     with device stage B), 'device' (residual stage B wait), 'pull' (tables
-    to the host), 'assemble' (C++ stream assembly + deflate).
+    to the host), 'assemble' (C++ stream assembly + deflate).  Traced
+    (utils/log.py), each stage is also a span `encode.<stage>` that ends at
+    the same point; the syncs of 'push' and 'device' are made only for
+    `timings`.
 
     With `mesh` (parallel.make_mesh) instead of `device`, the push and the
     device stages run data-parallel over the mesh's `data_axes` (default:
@@ -428,6 +438,8 @@ def encode_batch(images: Sequence[ImageData], config: CodecConfig,
         device_fn = sharded_dense_device_fn(cfg, (h, w), b, mesh, data_axes)
     marks = [time.perf_counter()]
     devices = []
+    spans = stages("encode", ENCODE_STAGES if mesh is None
+                   else ENCODE_STAGES[1:])
 
     def mark(name, sync=False):
         if timings is not None:
@@ -437,34 +449,49 @@ def encode_batch(images: Sequence[ImageData], config: CodecConfig,
                         torch.cuda.synchronize(d)
             marks.append(time.perf_counter())
             timings[name] = timings.get(name, 0.0) + marks[-1] - marks[-2]
+        spans.mark(name)
 
-    layer_shapes = cfg.layer_shapes((h, w))
-    spec = spec_for(cfg, (h, w))
-    host_batch = _host_batch(images)
-    if mesh is None:
-        devices.append(dev)
-        levels, flat = _device_shard(host_batch, cfg, (h, w), b, dev, mark)
-        levels, flats = [levels], [flat]
-    else:
-        levels, flats = device_fn(host_batch)
-        devices.extend({t.device for t in flats})
-        mark("stage_a")
-    # stage B has no plan dependence: it runs while the host plans
-    plans = _build_plans(cfg, layer_shapes, np.concatenate(levels),
-                         level_band(cfg), b)
-    mark("plans")
-    mark("device", sync=True)
+    with spans:
+        layer_shapes = cfg.layer_shapes((h, w))
+        spec = spec_for(cfg, (h, w))
+        with span("encode.convert", cpu=True):
+            host_batch = _host_batch(images)
+        if mesh is None:
+            devices.append(dev)
+            levels, flat = _device_shard(host_batch, cfg, (h, w), b, dev,
+                                         mark)
+            levels, flats = [levels], [flat]
+        else:
+            levels, flats = device_fn(host_batch)
+            devices.extend({t.device for t in flats})
+            mark("stage_a")
+        # stage B has no plan dependence: it runs while the host plans
+        plans = _build_plans(cfg, layer_shapes, np.concatenate(levels),
+                             level_band(cfg), b)
+        mark("plans")
+        mark("device", sync=True)
 
-    b_loc = b // len(flats)
-    shards = [carve_tables(to_host(t, f"enc_tables_{k}"), spec, b_loc)
-              for k, t in enumerate(flats)]
-    mark("pull")
+        b_loc = b // len(flats)
+        shards = [carve_tables(to_host(t, f"enc_tables_{k}"), spec, b_loc)
+                  for k, t in enumerate(flats)]
+        mark("pull")
 
-    arena, arena_offs, out_sizes = assemble_native(cfg, spec, plans, shards,
-                                                   b)
+        with span("assemble.native"):
+            arena, arena_offs, out_sizes = assemble_native(
+                cfg, spec, plans, shards, b)
+        with span("assemble.containers"):
+            out = _containers(images, cfg, h, w, plans, arena, arena_offs,
+                              out_sizes)
+        mark("assemble")
+    return out
+
+
+def _containers(images, cfg: CodecConfig, h: int, w: int, plans, arena,
+                arena_offs, out_sizes) -> List[bytes]:
+    """The .ajpg blobs of encode_batch's plans and assembled payloads."""
     mn, mx = cfg.block_size_range
     out = []
-    for bi in range(b):
+    for bi in range(len(images)):
         writer = ContainerWriter(ContainerMetadata(
             height=h, width=w, num_layers=3, color_space=cfg.color_space,
             quality_min=cfg.quality_range[0],
@@ -480,5 +507,4 @@ def encode_batch(images: Sequence[ImageData], config: CodecConfig,
                 bits_len, plan.root_size, states_bytes, coeffs=None,
                 compressed=arena[o:o + int(out_sizes[t])].tobytes()))
         out.append(writer.tobytes())
-    mark("assemble")
     return out

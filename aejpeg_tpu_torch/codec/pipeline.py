@@ -36,6 +36,7 @@ from ..native import deflate_parallel
 from ..ops import dct, quant, resize, zigzag
 from ..ops.canny import canny
 from ..ops.rounding import divide
+from ..utils.log import span
 from . import quadtree as qt
 
 
@@ -155,19 +156,34 @@ class Codec:
         return per_size[size]
 
     def _tensor(self, arr: np.ndarray, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(arr, dtype=dtype, device=self.device)
+        """A host array on the device (a blocking copy on CUDA)."""
+        with span("sync.upload"):
+            return torch.as_tensor(arr, dtype=dtype, device=self.device)
+
+    @staticmethod
+    def _host(t: torch.Tensor) -> np.ndarray:
+        """A device tensor on the host (a blocking copy on CUDA)."""
+        with span("sync.pull"):
+            return t.cpu().numpy()
 
     # ------------------------------------------------------------- encode
     def compress(self, img: ImageData) -> bytes:
+        """Traced (utils/log.py) as the root span `codec.compress`."""
+        with span("codec.compress"):
+            return self._compress(img)
+
+    def _compress(self, img: ImageData) -> bytes:
         cfg = self.config
         h, w = img.original_shape[:2]
         self.extension = img.extension
         layer_shapes = cfg.layer_shapes((h, w))
-        layers = _color_and_downsample(
-            self._tensor(np.asarray(img.data, np.float32)), cfg.color_space,
-            layer_shapes)
-        mids, scales = color.normalization_constants(cfg.color_space)
-        tables = self._quant_tables()
+        with span("codec.tables"):
+            mids, scales = color.normalization_constants(cfg.color_space)
+            tables = self._quant_tables()
+        with span("codec.color"):
+            layers = _color_and_downsample(
+                self._tensor(np.asarray(img.data, np.float32)),
+                cfg.color_space, layer_shapes)
         mn, mx = cfg.block_size_range
         writer = ContainerWriter(ContainerMetadata(
             height=h, width=w, num_layers=3, color_space=cfg.color_space,
@@ -179,39 +195,51 @@ class Codec:
             lh, lw = layer_shapes[i]
             if mn == mx:
                 # uniform grid: the tree never consults edges
-                plan = qt.uniform_plan(lh, lw, mn)
+                with span("codec.plan"):
+                    plan = qt.uniform_plan(lh, lw, mn)
             else:
-                edge = self.edge_fn(layer)
-                if isinstance(edge, torch.Tensor):
-                    edge = edge.cpu().numpy()
-                plan = qt.build_plan(np.asarray(edge), mx, mn)
-            norm = (layer - self._tensor(mids[i])) * self._tensor(scales[i])
-
-            sizes64 = plan.leaf_sizes.astype(np.int64)
-            offsets = np.zeros(len(sizes64) + 1, np.int64)
-            np.cumsum(sizes64 * sizes64, out=offsets[1:])
-            coeffs = np.empty(int(offsets[-1]), np.int32)
-            for s, idx in plan.buckets().items():
-                inv_hi, inv_lo = quant.reciprocal_table(
-                    self._quant_table_for(tables, i, s))
-                vecs = _encode_bucket(
-                    norm, self._tensor(plan.leaf_y[idx], torch.int64),
-                    self._tensor(plan.leaf_x[idx], torch.int64),
-                    self._tensor(inv_hi), self._tensor(inv_lo), s, lh, lw)
-                flat_idx = (offsets[idx][:, None]
-                            + np.arange(s * s, dtype=np.int64)[None, :])
-                coeffs[flat_idx.ravel()] = vecs.cpu().numpy().ravel()
-
-            states_bytes, bits_len = qt.pack_states(plan.states)
-            writer.add_layer(LayerPayload(
-                bits_len=bits_len, root_size=plan.root_size,
-                states_bytes=states_bytes, coeffs=coeffs))
-        return writer.tobytes()
+                with span("codec.edges"):
+                    edge = self.edge_fn(layer)
+                    if isinstance(edge, torch.Tensor):
+                        edge = self._host(edge)
+                with span("codec.plan"):
+                    plan = qt.build_plan(np.asarray(edge), mx, mn)
+            with span("codec.blocks"):
+                norm = (layer - self._tensor(mids[i])) \
+                    * self._tensor(scales[i])
+                sizes64 = plan.leaf_sizes.astype(np.int64)
+                offsets = np.zeros(len(sizes64) + 1, np.int64)
+                np.cumsum(sizes64 * sizes64, out=offsets[1:])
+                coeffs = np.empty(int(offsets[-1]), np.int32)
+                for s, idx in plan.buckets().items():
+                    inv_hi, inv_lo = quant.reciprocal_table(
+                        self._quant_table_for(tables, i, s))
+                    vecs = _encode_bucket(
+                        norm, self._tensor(plan.leaf_y[idx], torch.int64),
+                        self._tensor(plan.leaf_x[idx], torch.int64),
+                        self._tensor(inv_hi), self._tensor(inv_lo), s, lh,
+                        lw)
+                    flat_idx = (offsets[idx][:, None]
+                                + np.arange(s * s, dtype=np.int64)[None, :])
+                    coeffs[flat_idx.ravel()] = self._host(vecs).ravel()
+            with span("codec.pack"):
+                states_bytes, bits_len = qt.pack_states(plan.states)
+                writer.add_layer(LayerPayload(
+                    bits_len=bits_len, root_size=plan.root_size,
+                    states_bytes=states_bytes, coeffs=coeffs))
+        with span("codec.deflate"):
+            return writer.tobytes()
 
     # ------------------------------------------------------------- decode
     def decompress(self, data: bytes) -> ImageData:
-        reader = ContainerReader(data)
-        meta = reader.metadata
+        """Traced (utils/log.py) as the root span `codec.decompress`."""
+        with span("codec.decompress"):
+            return self._decompress(data)
+
+    def _decompress(self, data: bytes) -> ImageData:
+        with span("codec.parse"):
+            reader = ContainerReader(data)
+            meta = reader.metadata
         self.config = cfg = CodecConfig(
             color_space=meta.color_space,
             quality_range=(meta.quality_min, meta.quality_max),
@@ -219,37 +247,44 @@ class Codec:
         self.extension = meta.extension
         h, w = meta.height, meta.width
         layer_shapes = cfg.layer_shapes((h, w))
-        mids, scales = color.normalization_constants(cfg.color_space)
-        tables = self._quant_tables()
+        with span("codec.tables"):
+            mids, scales = color.normalization_constants(cfg.color_space)
+            tables = self._quant_tables()
 
         ups = []
         for i in range(3):
-            payload = reader.read_layer()
             lh, lw = layer_shapes[i]
-            states = qt.unpack_states(payload.states_bytes, payload.bits_len)
-            sizes, ys, xs = qt.replay_positions(states, payload.root_size,
-                                                lh, lw)
-            offsets = np.zeros(len(sizes) + 1, np.int64)
-            np.cumsum(sizes.astype(np.int64) ** 2, out=offsets[1:])
-            root = payload.root_size
-            canvas = torch.zeros((root, root), dtype=torch.float32,
-                                 device=self.device)
-            for s in np.unique(sizes):
-                s = int(s)
-                idx = np.nonzero(sizes == s)[0]
-                flat_idx = (offsets[idx][:, None]
-                            + np.arange(s * s, dtype=np.int64)[None, :])
-                vecs = payload.coeffs[flat_idx.ravel()].reshape(len(idx), -1)
-                blocks = _decode_bucket(
-                    self._tensor(vecs, torch.int32),
-                    self._tensor(self._quant_table_for(tables, i, s)), s)
-                _paint_bucket(canvas, blocks,
-                              self._tensor(ys[idx], torch.int64),
-                              self._tensor(xs[idx], torch.int64), s)
-            layer = divide(canvas[:lh, :lw], float(scales[i])) \
-                + float(mids[i])
-            ups.append(resize.resize2d(layer, (h, w), "linear"))
+            with span("codec.parse"):
+                payload = reader.read_layer()
+                states = qt.unpack_states(payload.states_bytes,
+                                          payload.bits_len)
+                sizes, ys, xs = qt.replay_positions(
+                    states, payload.root_size, lh, lw)
+            with span("codec.blocks"):
+                offsets = np.zeros(len(sizes) + 1, np.int64)
+                np.cumsum(sizes.astype(np.int64) ** 2, out=offsets[1:])
+                root = payload.root_size
+                canvas = torch.zeros((root, root), dtype=torch.float32,
+                                     device=self.device)
+                for s in np.unique(sizes):
+                    s = int(s)
+                    idx = np.nonzero(sizes == s)[0]
+                    flat_idx = (offsets[idx][:, None]
+                                + np.arange(s * s, dtype=np.int64)[None, :])
+                    vecs = payload.coeffs[flat_idx.ravel()].reshape(
+                        len(idx), -1)
+                    blocks = _decode_bucket(
+                        self._tensor(vecs, torch.int32),
+                        self._tensor(self._quant_table_for(tables, i, s)), s)
+                    _paint_bucket(canvas, blocks,
+                                  self._tensor(ys[idx], torch.int64),
+                                  self._tensor(xs[idx], torch.int64), s)
+            with span("codec.upsample"):
+                layer = divide(canvas[:lh, :lw], float(scales[i])) \
+                    + float(mids[i])
+                ups.append(resize.resize2d(layer, (h, w), "linear"))
 
-        rgb = color.convert(cfg.color_space, "sRGB",
-                            torch.stack(ups, dim=-1), tiny=False)  # decoded
-        return ImageData(rgb.cpu().numpy(), (h, w, 3), meta.extension)
+        with span("codec.color"):
+            rgb = color.convert(cfg.color_space, "sRGB",      # decoded
+                                torch.stack(ups, dim=-1), tiny=False)
+        return ImageData(self._host(rgb), (h, w, 3), meta.extension)

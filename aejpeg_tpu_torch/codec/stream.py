@@ -10,7 +10,6 @@ submission order on the current stream.
 Outputs always return in input order regardless of shape grouping.
 """
 
-import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Sequence, Tuple
@@ -21,7 +20,7 @@ from .. import resolve_device
 from ..config import CodecConfig
 from ..io.container import ContainerReader
 from ..io.image import ImageData
-from ..utils.log import get_logger
+from ..utils.log import get_logger, span
 from .batch_decode import decode_batch
 from .batch_encode import encode_batch
 
@@ -40,19 +39,21 @@ def batches_by_shape(images: Sequence[ImageData], batch_size: int
     return batches
 
 
+def _mpix(images: Sequence[ImageData]) -> float:
+    return round(sum(im.original_shape[0] * im.original_shape[1]
+                     for im in images) / 1e6, 3)
+
+
 def _encode_one(images: List[ImageData], config: CodecConfig,
-                batch_no: int, device: torch.device) -> List[bytes]:
+                batch_no: int, device: torch.device, root) -> List[bytes]:
     log = get_logger()
     timings: Dict[str, float] = {} if log.enabled else None
-    t0 = time.perf_counter()
-    blobs = encode_batch(images, config, timings=timings, device=device)
+    with span("encode.batch", parent=root, batch=batch_no,
+              images=len(images)) as sp:
+        blobs = encode_batch(images, config, timings=timings, device=device)
     if log.enabled:
-        mpix = sum(im.original_shape[0] * im.original_shape[1]
-                   for im in images) / 1e6
-        wall = time.perf_counter() - t0
-        log.event("encode_batch", batch=batch_no, images=len(images),
-                  mpix=round(mpix, 3), wall_s=wall,
-                  mpix_per_s=mpix / max(wall, 1e-9),
+        log.event("encode_batch", span=sp, batch=batch_no,
+                  images=len(images), mpix=_mpix(images),
                   bytes=sum(len(x) for x in blobs), stages=timings)
     return blobs
 
@@ -63,28 +64,27 @@ def encode_stream(images: Sequence[ImageData], config: CodecConfig,
     """Encode a mixed-shape image stream; returns blobs in input order.
 
     device: None means CUDA (raises when CUDA is absent); "cpu" runs the
-    plain PyTorch path.  Set AEJPEG_LOG=stderr (or a file path) for
-    per-batch structured JSON records (utils/log.py)."""
+    plain PyTorch path.  Set AEJPEG_LOG=stderr (or a file path) to trace
+    it (utils/log.py): the call's root span `encode_stream` (images,
+    batches, mpix), under it one `encode.batch` span a batch with its
+    stage spans, and one `encode_batch` record a batch (ts, wall_s, batch,
+    images, mpix, bytes, and `stages`: encode_batch's timings=, whose
+    'push' and 'device' marks synchronise the device)."""
     dev = resolve_device(device)
     images = list(images)
     out: List[bytes] = [b""] * len(images)
     batches = batches_by_shape(images, batch_size)
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=max(1, lookahead)) as pool:
+    with span("encode_stream") as root, \
+            ThreadPoolExecutor(max_workers=max(1, lookahead)) as pool:
         futs = [(idxs, pool.submit(_encode_one, [images[i] for i in idxs],
-                                   config, bn, dev))
+                                   config, bn, dev, root))
                 for bn, idxs in enumerate(batches)]
         for idxs, fut in futs:
             for i, blob in zip(idxs, fut.result()):
                 out[i] = blob
-    log = get_logger()
-    if log.enabled:
-        mpix = sum(im.original_shape[0] * im.original_shape[1]
-                   for im in images) / 1e6
-        wall = time.perf_counter() - t0
-        log.event("encode_stream", images=len(images), batches=len(batches),
-                  mpix=round(mpix, 3), wall_s=wall,
-                  mpix_per_s=mpix / max(wall, 1e-9))
+        if get_logger().enabled:
+            root.attrs.update(images=len(images), batches=len(batches),
+                              mpix=_mpix(images))
     return out
 
 
@@ -95,25 +95,24 @@ def _decode_group_key(blob: bytes) -> Tuple:
 
 
 def _decode_one(blobs: List[bytes], batch_no: int,
-                device: torch.device) -> List[ImageData]:
+                device: torch.device, root) -> List[ImageData]:
     log = get_logger()
     timings: Dict[str, float] = {} if log.enabled else None
-    t0 = time.perf_counter()
-    images = decode_batch(blobs, timings=timings, device=device)
+    with span("decode.batch", parent=root, batch=batch_no,
+              images=len(blobs)) as sp:
+        images = decode_batch(blobs, timings=timings, device=device)
     if log.enabled:
-        mpix = sum(im.original_shape[0] * im.original_shape[1]
-                   for im in images) / 1e6
-        wall = time.perf_counter() - t0
-        log.event("decode_batch", batch=batch_no, images=len(blobs),
-                  mpix=round(mpix, 3), wall_s=wall,
-                  mpix_per_s=mpix / max(wall, 1e-9), stages=timings)
+        log.event("decode_batch", span=sp, batch=batch_no,
+                  images=len(blobs), mpix=_mpix(images), stages=timings)
     return images
 
 
 def decode_stream(blobs: Sequence[bytes], batch_size: int = 16,
                   lookahead: int = 2, device=None) -> List[ImageData]:
     """Decode a mixed-settings blob stream; returns images in input order.
-    device: as encode_stream."""
+    device: as encode_stream.  Traced as encode_stream is: the root span
+    `decode_stream`, one `decode.batch` span and one `decode_batch` record
+    a batch."""
     dev = resolve_device(device)
     blobs = list(blobs)
     groups: Dict[Tuple, List[int]] = defaultdict(list)
@@ -124,20 +123,15 @@ def decode_stream(blobs: Sequence[bytes], batch_size: int = 16,
         for off in range(0, len(idxs), batch_size):
             batches.append(idxs[off:off + batch_size])
     out: List[ImageData] = [None] * len(blobs)  # type: ignore[list-item]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=max(1, lookahead)) as pool:
+    with span("decode_stream") as root, \
+            ThreadPoolExecutor(max_workers=max(1, lookahead)) as pool:
         futs = [(idxs, pool.submit(_decode_one, [blobs[i] for i in idxs],
-                                   bn, dev))
+                                   bn, dev, root))
                 for bn, idxs in enumerate(batches)]
         for idxs, fut in futs:
             for i, img in zip(idxs, fut.result()):
                 out[i] = img
-    log = get_logger()
-    if log.enabled:
-        mpix = sum(im.original_shape[0] * im.original_shape[1]
-                   for im in out) / 1e6
-        wall = time.perf_counter() - t0
-        log.event("decode_stream", images=len(blobs), batches=len(batches),
-                  mpix=round(mpix, 3), wall_s=wall,
-                  mpix_per_s=mpix / max(wall, 1e-9))
+        if get_logger().enabled:
+            root.attrs.update(images=len(blobs), batches=len(batches),
+                              mpix=_mpix(out))
     return out

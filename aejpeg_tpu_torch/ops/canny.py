@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.log import count, span
 from .dfloat import expf_xla
 from .kernels import (bilateral, clahe_apply_gather,
                       clahe_gather_supported, clahe_lut_apply, disk,
@@ -337,13 +338,21 @@ def _hysteresis(strong: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
     """Grow strong through weak (8-connected) to the fixpoint.  Any correct
     fixpoint gives the same map as the JAX package's bit-packed version.
     Convergence is checked on the host every _HYST_STEPS steps (one device
-    sync per check); extra steps past the fixpoint change nothing."""
+    sync per check); extra steps past the fixpoint change nothing.
+    Traced, each check is a `sync.hysteresis` span, and the enclosing span
+    counts `hysteresis_checks` and `hysteresis_steps`."""
     cur = strong
+    checks = 0
     while True:
         prev = cur
         for _ in range(_HYST_STEPS):
             cur = cur | (weak & _dilate8(cur))
-        if torch.equal(cur, prev):
+        checks += 1
+        with span("sync.hysteresis"):
+            done = torch.equal(cur, prev)
+        if done:
+            count("hysteresis_checks", checks)
+            count("hysteresis_steps", checks * _HYST_STEPS)
             return cur
 
 
