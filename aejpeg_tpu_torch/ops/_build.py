@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 SOURCES = ("histogram256.cu", "clahe_apply.cu", "u8_to_unit.cu",
-           "banded_resize.cu", "bilateral.cu")
+           "banded_resize.cu", "bilateral.cu", "hysteresis.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -14,9 +14,8 @@ Stages follow the reference preprocessing + Canny pipeline
   6. Canny: Sobel aperture 3, L2 gradient, NMS, hysteresis
 
 The 256-bin histograms (CLAHE tiles, percentiles), the CLAHE LUT
-application and the bilateral filter's taps run through the kernels of
-ops/kernels.py.  Output is float32
-{0, 1}.
+application, the bilateral filter's taps and the hysteresis run through
+the kernels of ops/kernels.py.  Output is float32 {0, 1}.
 """
 
 import functools
@@ -26,11 +25,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.log import count, span
 from .dfloat import expf_xla
 from .kernels import (bilateral, clahe_apply_gather,
                       clahe_gather_supported, clahe_lut_apply, disk,
-                      histogram256, reflect101_pad)
+                      histogram256, hysteresis, reflect101_pad)
 
 
 # --------------------------------------------------------------- uint8 cast
@@ -317,43 +315,7 @@ def _canny_from_gradients(gx: torch.Tensor, gy: torch.Tensor,
                                   torch.where(s_xor, diag2, diag1)))
     strong = nms & (mag > high[:, None, None])
     weak = nms & (mag > low[:, None, None])
-    return _hysteresis(strong, weak).to(torch.float32)
-
-
-def _dilate8(m: torch.Tensor) -> torch.Tensor:
-    """8-neighbourhood dilation of a (P, H, W) bool map (zero border)."""
-    row = m.clone()
-    row[..., 1:] |= m[..., :-1]
-    row[..., :-1] |= m[..., 1:]
-    out = row.clone()
-    out[..., 1:, :] |= row[..., :-1, :]
-    out[..., :-1, :] |= row[..., 1:, :]
-    return out
-
-
-_HYST_STEPS = 8   # dilation steps between convergence checks
-
-
-def _hysteresis(strong: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
-    """Grow strong through weak (8-connected) to the fixpoint.  Any correct
-    fixpoint gives the same map as the JAX package's bit-packed version.
-    Convergence is checked on the host every _HYST_STEPS steps (one device
-    sync per check); extra steps past the fixpoint change nothing.
-    Traced, each check is a `sync.hysteresis` span, and the enclosing span
-    counts `hysteresis_checks` and `hysteresis_steps`."""
-    cur = strong
-    checks = 0
-    while True:
-        prev = cur
-        for _ in range(_HYST_STEPS):
-            cur = cur | (weak & _dilate8(cur))
-        checks += 1
-        with span("sync.hysteresis"):
-            done = torch.equal(cur, prev)
-        if done:
-            count("hysteresis_checks", checks)
-            count("hysteresis_steps", checks * _HYST_STEPS)
-            return cur
+    return hysteresis(strong, weak)
 
 
 # ------------------------------------------------------------- percentiles

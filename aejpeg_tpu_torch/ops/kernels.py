@@ -12,10 +12,12 @@ Counterpart of the JAX package's ops/pallas_kernels.py:
   u8_to_unit          <- u8_to_unit_lut (_u8_lut_2d, _u8_lut_kernel)
                          csrc/u8_to_unit.cu
 
-the port's own bilateral filter, which has no Pallas counterpart (the
-reference's 13-tap loop, ops/canny.py bilateral_u8):
+the port's own bilateral filter and hysteresis, which have no Pallas
+counterpart (the reference's 13-tap loop, ops/canny.py bilateral_u8, and
+its jnp hysteresis under a while_loop, ops/canny.py _hysteresis):
 
   bilateral           <- bilateral_u8's taps: csrc/bilateral.cu
+  hysteresis          <- _hysteresis: csrc/hysteresis.cu
 
 and one kernel source of the port's own, which has no Pallas counterpart
 (the reference's einsums summed in XLA's CPU order, ops/xla_dot.py), with
@@ -42,6 +44,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.log import count, span
 from . import _build
 from .libm import (_F32_MIDPOINT, _F32_MIDPOINT_MASK, _round_to_odd,
                    _two_sum, fma32_exact, fma32_sum, ftz)
@@ -57,9 +60,9 @@ class LaunchCounter:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:
@@ -76,7 +79,8 @@ LAUNCHES = {"histogram256": LaunchCounter(),
             "u8_to_unit": LaunchCounter(),
             "banded_resize": LaunchCounter(),
             "dct2d": LaunchCounter(),
-            "bilateral": LaunchCounter()}
+            "bilateral": LaunchCounter(),
+            "hysteresis": LaunchCounter()}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,6 +96,11 @@ _SIGNATURES = {
                   [_VP] * 3 + [_I] * 6 + [_VP, _VP, _I, _I, _VP, _I]
                   + [_VP] * 3 + [_I, _I, _VP]),
     "aej_bilateral": ("bilateral.cu", [_VP] * 4 + [_I] * 4 + [_VP]),
+    "aej_hysteresis_smem": ("hysteresis.cu", [_VP]),
+    "aej_hysteresis": ("hysteresis.cu", [_VP] * 3 + [_I] * 3 + [_VP, _VP]),
+    "aej_hysteresis_rounds": ("hysteresis.cu",
+                              [_VP] * 6 + [_I] * 6 + [_VP]),
+    "aej_hysteresis_unpack": ("hysteresis.cu", [_VP] * 2 + [_I] * 3 + [_VP]),
 }
 _FNS = {}
 _FNS_LOCK = threading.Lock()
@@ -1067,4 +1076,139 @@ def dct2d(x: torch.Tensor, band, quant=None, add=None,
                 w_t.data_ptr(), p, h, wd, s, lanes, small_w, *q_args,
                 *f_args)
         LAUNCHES["dct2d"].add()
+    return out
+
+
+# --------------------------------------------------------------- hysteresis
+
+
+def _dilate8(m: torch.Tensor) -> torch.Tensor:
+    """8-neighbourhood dilation of a (P, H, W) bool map (zero border)."""
+    row = m.clone()
+    row[..., 1:] |= m[..., :-1]
+    row[..., :-1] |= m[..., 1:]
+    out = row.clone()
+    out[..., 1:, :] |= row[..., :-1, :]
+    out[..., :-1, :] |= row[..., 1:, :]
+    return out
+
+
+_HYST_STEPS = 8   # dilation steps between convergence checks
+
+
+def hysteresis_plain(strong: torch.Tensor, weak: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain version of hysteresis: grow strong through weak (8-connected)
+    to the fixpoint, (P, H, W) bool -> bool.  Any correct fixpoint gives
+    the same map as the JAX package's bit-packed version.  Convergence is
+    checked on the host every _HYST_STEPS steps (one device sync per
+    check); extra steps past the fixpoint change nothing.  Traced, each
+    check is a `sync.hysteresis` span, and the enclosing span counts
+    `hysteresis_checks` and `hysteresis_steps`."""
+    cur = strong
+    checks = 0
+    while True:
+        prev = cur
+        for _ in range(_HYST_STEPS):
+            cur = cur | (weak & _dilate8(cur))
+        checks += 1
+        with span("sync.hysteresis"):
+            done = torch.equal(cur, prev)
+        if done:
+            count("hysteresis_checks", checks)
+            count("hysteresis_steps", checks * _HYST_STEPS)
+            return cur
+
+
+_HYST_LANE_WORDS = 16   # the most 32-pixel words a lane of a row holds
+_HYST_GROUP = 4         # rounds of the banded path a host check
+
+
+def hysteresis_band_rows(h: int, w: int, budget: int) -> int:
+    """The rows of a plane of h x w that one CTA of csrc/hysteresis.cu
+    holds in `budget` bytes of shared memory ((2 rows + 2) packed rows of
+    ceil(w / 32) words): h where the whole plane fits (the resident path),
+    else the rows of the fewest equal bands that fit."""
+    most = budget // (8 * -(-w // 32)) - 1
+    if most >= h:
+        return h
+    if most < 1:
+        raise ValueError(f"hysteresis: a row of {w} pixels does not fit "
+                         f"{budget} bytes of shared memory")
+    return -(-h // -(-h // most))
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_budget(device: torch.device) -> int:
+    """The shared memory a block of `device` may opt in to."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _fn("aej_hysteresis_smem")(ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"aej_hysteresis_smem failed with error {err}")
+    return out.value
+
+
+def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
+               tally: dict = None) -> torch.Tensor:
+    """Canny's hysteresis: the strong pixels of (P, H, W) bool maps grown
+    through the weak ones (8-connected) to the fixpoint -> (P, H, W)
+    float32 {0, 1} edge map.  On the card: one launch where every plane
+    fits a CTA's shared memory (no host check), else bands of rows in
+    rounds, one host check (`sync.hysteresis`) a group of _HYST_GROUP
+    rounds.  Traced, the enclosing span counts `hysteresis_checks` (the
+    host checks: 0 on the resident path) and `hysteresis_launches`.
+    tally: a dict that takes, on the card, the largest count of passes
+    (a down and an up sweep of its rows) of one CTA (`passes`), their sum
+    over CTAs and rounds (`passes_total`), the rounds that ran (`rounds`),
+    `launches` and `checks` (it costs a sync; the codec passes none)."""
+    if strong.dim() != 3:
+        raise ValueError("hysteresis: expected (P, H, W) maps")
+    dev = strong.device
+    _check("hysteresis", strong, torch.bool, strong.shape, dev)
+    _check("hysteresis", weak, torch.bool, strong.shape, dev)
+    if not _route("hysteresis", dev):
+        return hysteresis_plain(strong, weak).to(torch.float32)
+    p, h, w = strong.shape
+    if w > 32 * 32 * _HYST_LANE_WORDS:
+        raise ValueError(f"hysteresis: planes of {w} pixels wide (at most "
+                         f"{32 * 32 * _HYST_LANE_WORDS})")
+    out = torch.empty((p, h, w), dtype=torch.float32, device=dev)
+    if not out.numel():
+        return out
+    tal = (torch.zeros(3, dtype=torch.int32, device=dev)
+           if tally is not None else None)
+    tal_ptr = None if tal is None else tal.data_ptr()
+    rows = hysteresis_band_rows(h, w, _smem_budget(dev))
+    if rows >= h:
+        _launch("aej_hysteresis", dev, strong.data_ptr(), weak.data_ptr(),
+                out.data_ptr(), p, h, w, tal_ptr)
+        launches, checks = 1, 0
+    else:
+        state = torch.empty((p, h, -(-w // 32)), dtype=torch.int32,
+                            device=dev)
+        weakp = torch.empty_like(state)
+        last = torch.full((1,), -1, dtype=torch.int32, device=dev)
+        launches = checks = 0
+        while True:
+            _launch("aej_hysteresis_rounds", dev, strong.data_ptr(),
+                    weak.data_ptr(), state.data_ptr(), weakp.data_ptr(),
+                    last.data_ptr(), tal_ptr, p, h, w, rows, launches,
+                    _HYST_GROUP)
+            launches += _HYST_GROUP
+            checks += 1
+            with span("sync.hysteresis"):
+                done = int(last.item()) < launches - 1
+            if done:
+                break
+        _launch("aej_hysteresis_unpack", dev, state.data_ptr(),
+                out.data_ptr(), p, h, w)
+        launches += 1
+    LAUNCHES["hysteresis"].add(launches)
+    count("hysteresis_checks", checks)
+    count("hysteresis_launches", launches)
+    if tally is not None:
+        most, total, ran = tal.tolist()
+        tally.update(passes=most, passes_total=total, rounds=ran,
+                     launches=launches, checks=checks)
     return out

@@ -10,8 +10,9 @@ preorder, so its coefficient rows are the container's coefficient stream.
 `sharded_dense_device_fn` / `sharded_dense_decode_fn` split the batched
 codec's device stages over a mesh's data axes, whole images per shard.
 The caller's thread dispatches the shards in turn, each on its own device:
-the host waits inside a shard (the Canny hysteresis syncs about 22 times
-a batch) wait for that shard's device only, while the shards before it
+the host waits inside a shard (the edge levels' pull; the Canny
+hysteresis on planes too large for one CTA's shared memory) wait for that
+shard's device only, while the shards before it
 keep running.  One host thread per shard was measured 1.9-6.8x slower on
 H100s: eager dispatch from several threads hands the GIL over at every op
 (tools/mesh_scaling.py).  The dense tables are plane-major (plane =

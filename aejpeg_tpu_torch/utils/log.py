@@ -44,8 +44,11 @@ The span tree of the streams and the per-image Codec:
     encode.batch (parent: the root, on a worker thread; batch, images)
       encode.push          encode.convert (cpu_ns), sync.upload
       encode.stage_a       stage_a.canny (a layer group; counts
-                           hysteresis_checks, hysteresis_steps)
-                             sync.hysteresis (each convergence check)
+                           hysteresis_checks (host checks: 0 where every
+                           plane fits the kernel's shared memory) and
+                           hysteresis_launches on the card, or
+                           hysteresis_checks, hysteresis_steps on the CPU)
+                             sync.hysteresis (each host check)
                            sync.levels
       encode.plans, encode.device, encode.pull
       encode.assemble      assemble.native, assemble.containers

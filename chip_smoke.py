@@ -115,7 +115,15 @@ levels), and on planes of tiny, subnormal, -0 and mixed-sign values;
 both on planes of NaNs of many payloads and infinities, payloads
 included.  The bilateral kernel (csrc/bilateral.cu) takes the unpadded
 planes at the Canny stack's shapes, edge shapes (1x1, 1xN, Nx1, 3x4) and
-planes of more tiles than the card holds CTAs at once.  Its library
+planes of more tiles than the card holds CTAs at once.  The hysteresis
+kernel (csrc/hysteresis.cu) takes the strong and weak maps stage A hands
+it for the flagship cell's images (benchmark/harness/images.py: the luma
+and chroma groups and one plane of each, the times the kernel line sums),
+the adversarial maps of `hysteresis_maps` (spirals, a serpentine, chains
+across 32-pixel words, no strong pixel, every pixel weak, chains across
+the band edges of a 2048x1365 plane and one its whole height) and the NMS
+map of a 2048x1365 image, the last two on its banded path; each case logs
+the passes and rounds it took.  Its library
 time is the route each replaced: torch.matmul for the resize, cuBLAS
 products with the copies and the eager quantize or denormalize for the
 DCTs.
@@ -336,7 +344,7 @@ def kernel_cases(dev):
     g = torch.Generator(device="cpu").manual_seed(0)
     cases = {"histogram256": [], "clahe_apply_gather": [],
              "clahe_lut_apply": [], "u8_to_unit": [], "banded_resize": [],
-             "dct2d": [], "bilateral": []}
+             "dct2d": [], "bilateral": [], "hysteresis": []}
 
     def ints(*shape):
         return torch.randint(0, 256, shape, generator=g,
@@ -466,6 +474,7 @@ def kernel_cases(dev):
                 2, inp, axis, dst[axis - 1], kind, False,
                 " (NaN payloads)"))
     cases["dct2d"] = dct_cases(dev, g)
+    cases["hysteresis"] = hysteresis_cases(dev)
     # the Canny stack's planes as phase 3 sends them (luma and chroma of
     # both batches: the luma batch alone is more CTAs than the card holds
     # at once), then edge shapes (1x1, 1xN, Nx1, 3x4, planes narrower than
@@ -490,6 +499,201 @@ def kernel_cases(dev):
              lambda x: K.bilateral(x, colour, space, 2), None,
              2 * p * h * w + 256 * 4, (3 * taps + 3) * p * h * w, on_path))
     return cases
+
+
+# the H100's shared memory a block may opt in to (the hysteresis kernel's
+# budget there: 2048x1365 planes take its banded path in bands of 512 rows)
+H100_SMEM_OPTIN = 232448
+# widths whose rows cross 32-pixel word boundaries in every way
+HYST_WIDTHS = (5, 31, 33, 300, 768)
+
+
+def _spiral(h, w):
+    """A rectangular spiral of weak pixels, arms two apart, from the
+    outside in: the chain turns up, down, left and right, h * w / 2 long."""
+    m = np.zeros((h, w), bool)
+    y0, x0, y1, x1 = 0, 0, h - 1, w - 1
+    while y0 <= y1 and x0 <= x1:
+        m[y0, x0:x1 + 1] = True
+        m[y0:y1 + 1, x1] = True
+        if y1 - y0 >= 2:
+            m[y1, x0:x1 + 1] = True
+        if x1 - x0 >= 2:
+            m[y0 + 2:y1 + 1, x0] = True
+            if y1 - y0 >= 4:
+                m[y0 + 2, x0 + 1] = True     # on to the next ring
+        y0, x0, y1, x1 = y0 + 2, x0 + 2, y1 - 2, x1 - 2
+    return m
+
+
+def _serpentine(h, w):
+    """Vertical weak runs in every other column, joined by one diagonal
+    pixel alternately at the bottom and the top: one chain that crosses the
+    plane's height w / 2 times."""
+    m = np.zeros((h, w), bool)
+    for x in range(0, w, 2):
+        m[1:h - 1, x] = True
+        if x + 2 < w:
+            m[h - 1 if x % 4 == 0 else 0, x + 1] = True
+    return m
+
+
+def _word_rows(h, w):
+    """Weak chains across the 32-pixel words of a row of w: full rows seeded
+    at the right end and at the left; runs broken at each word's last
+    column, every other gap bridged by a diagonal pixel below; a zigzag
+    chain over 8 rows; an isolated run that must stay off.  (strong,
+    weak), h >= 24."""
+    s = np.zeros((h, w), bool)
+    k = np.zeros((h, w), bool)
+    k[2] = True
+    s[2, w - 1] = True
+    k[5] = True
+    s[5, 0] = True
+    x = np.arange(w)
+    k[8] = x % 32 != 31
+    k[9] = (x % 32 == 31) & ((x // 32) % 2 == 0)
+    s[8, 0] = True
+    tri = np.abs((x % 14) - 7)
+    k[12 + tri, x] = True
+    s[12 + tri[-1], w - 1] = True
+    k[22, w // 3:] = True
+    return s, k
+
+
+def _band_edges(h, w, rows, long_chain):
+    """Short chains across each band edge of a plane cut into bands of
+    `rows` rows: vertical ones seeded below the edge and above it, a
+    diagonal, and a chain that turns along the edge row across the words;
+    long_chain: also one vertical chain the plane's height, seeded at its
+    foot.  (strong, weak)."""
+    s = np.zeros((h, w), bool)
+    k = np.zeros((h, w), bool)
+    for e in range(rows, h, rows):
+        lo, hi = max(e - 12, 0), min(e + 12, h - 1)
+        k[lo:hi + 1, 7] = True
+        s[hi, 7] = True
+        k[lo:hi + 1, 100] = True
+        s[lo, 100] = True
+        for i in range(lo, hi + 1):
+            k[i, 200 + i - lo] = True
+        s[lo, 200] = True
+        k[lo:e + 1, 500] = True
+        k[e, 500:min(w, 900)] = True
+        s[lo, 500] = True
+    if long_chain:
+        k[:, w - 3] = True
+        s[h - 1, w - 3] = True
+    return s, k
+
+
+def hysteresis_maps(band_shape=(2048, 1365), budget=H100_SMEM_OPTIN,
+                    long_chain=False):
+    """The hysteresis's adversarial cases, [(label, strong, weak)] of (P, H,
+    W) numpy bool maps: spirals and a serpentine fed from one strong
+    pixel (and a spiral that no strong pixel feeds), chains across 32-pixel
+    words at each of HYST_WIDTHS beside random maps of those widths, no
+    strong pixel, every pixel weak, and chains across the band edges of a
+    plane of `band_shape` that the card cuts into bands (its rows from
+    `budget` bytes of shared memory)."""
+    from aejpeg_tpu_torch.ops.kernels import hysteresis_band_rows
+    rng = np.random.default_rng(15)
+    out = []
+    sp = _spiral(61, 67)
+    fed = np.zeros_like(sp)
+    fed[0, 0] = True
+    out.append(("spiral 61x67", np.stack([fed, np.zeros_like(sp)]),
+                np.stack([sp, sp])))
+    sp = _spiral(40, 300)
+    ys, xs = np.nonzero(sp)
+    i = np.argmin(np.abs(ys - 20) * 300 + np.abs(xs - 150))
+    fed = np.zeros_like(sp)
+    fed[ys[i], xs[i]] = True                 # the spiral's inner end
+    out.append(("spiral 40x300, fed inside", fed[None], sp[None]))
+    se = _serpentine(64, 41)
+    fed = np.zeros_like(se)
+    fed[1, 0] = True
+    out.append(("serpentine 64x41", fed[None], se[None]))
+    for w in HYST_WIDTHS:
+        s, k = _word_rows(24, w)
+        rk = rng.random((24, w)) < 0.45
+        rs = rk & (rng.random((24, w)) < 0.01)
+        out.append((f"word crossings (2, 24, {w})", np.stack([s, rs]),
+                    np.stack([k, rk])))
+    rk = rng.random((3, 37, 53)) < 0.5
+    out.append(("no strong (3, 37, 53)", np.zeros_like(rk), rk))
+    full = np.ones((3, 33, 70), bool)
+    one = np.zeros_like(full)
+    one[0, 16, 35] = True
+    one[2] = True
+    out.append(("every pixel weak (3, 33, 70)", one, full))
+    h, w = band_shape
+    s, k = _band_edges(h, w, hysteresis_band_rows(h, w, budget), long_chain)
+    out.append((f"band edges (1, {h}, {w})", s[None], k[None]))
+    return out
+
+
+def _nms_maps(run):
+    """The (strong, weak) maps the Canny stack hands the hysteresis while
+    run() runs, in call order."""
+    from aejpeg_tpu_torch.ops import canny
+    real, calls = canny.hysteresis, []
+
+    def record(strong, weak):
+        calls.append((strong.clone(), weak.clone()))
+        return real(strong, weak)
+    canny.hysteresis = record
+    try:
+        run()
+    finally:
+        canny.hysteresis = real
+    return calls
+
+
+def hysteresis_cases(dev):
+    """kernel_cases' hysteresis entries.  On the path: the maps stage A
+    hands the kernel for 42 of the flagship cell's images
+    (benchmark/harness/images.py, seed 2147483801), the luma group (42,
+    512, 768) and the chroma group (84, 256, 384), and the first plane of
+    each (the preview's one-plane calls).  Off it: `hysteresis_maps` with
+    the card's budget (the band-edge plane with a chain its whole height)
+    and the NMS map of a 2048x1365 image's luma and 8 of stage A's luma
+    maps tiled to 2048x1365, all three cut into bands.
+    bytes: the two bool maps read once, the float32 map written once."""
+    import torch
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch.ops import canny, kernels as K
+    from benchmark.harness import images
+    imgs = images.to_host_images(images.synth(BATCH, H, W, 2147483801, dev),
+                                 ".png", at.ImageData)
+    cfg = at.CodecConfig("YCoCg", QUALITY, BLOCKS, entropy_level=-1)
+    (ls, lk), (cs_, ck) = _nms_maps(
+        lambda: at.encode_batch(imgs, cfg, device=dev))
+    photo = images.synth(1, 2048, 1365, 2147483802, dev)
+    luma = photo.to(torch.float32).mean(-1) / 255.0
+    (ps, pk), = _nms_maps(lambda: canny.canny(luma))
+    maps = [(f"stage A luma {tuple(ls.shape)}", ls, lk, True),
+            (f"stage A chroma {tuple(cs_.shape)}", cs_, ck, True),
+            (f"stage A luma plane {tuple(ls[:1].shape)}",
+             ls[:1].contiguous(), lk[:1].contiguous(), True),
+            (f"stage A chroma plane {tuple(cs_[:1].shape)}",
+             cs_[:1].contiguous(), ck[:1].contiguous(), True)]
+    for label, s, k in hysteresis_maps(budget=K._smem_budget(dev),
+                                       long_chain=True):
+        maps.append((label, torch.from_numpy(s).to(dev),
+                     torch.from_numpy(k).to(dev), False))
+    maps.append((f"NMS map of a 2048x1365 image {tuple(ps.shape)}", ps, pk,
+                 False))
+    if ls.shape[0] >= 8:        # denser: 8 of stage A's planes side by side
+        tile = [m[:8].reshape(4, 2, H, W).permute(0, 2, 1, 3)
+                .reshape(1, 4 * H, 2 * W)[..., :1365].contiguous()
+                for m in (ls, lk)]
+        maps.append((f"8 stage A luma planes tiled {tuple(tile[0].shape)}",
+                     *tile, False))
+    return [(label, (s, k),
+             lambda a, b: K.hysteresis_plain(a, b).to(torch.float32),
+             K.hysteresis, None, 6 * s.numel(), 0, on_path)
+            for label, s, k, on_path in maps]
 
 
 def _quant_tables(s, layers, dev):
@@ -806,6 +1010,11 @@ def check_kernels(dev, names=None, quick=False, path=False):
                     f"{name} {label}: kernel differs from its plain version "
                     f"(max abs {err})")
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            if name == "hysteresis":    # how far the fixpoint was
+                tally = {}
+                kern(*args, tally=tally)
+                tot.setdefault("tallies", {})[label] = tally
+                log(f"  {name} {label}: {tally}")
             if quick or not on_path:    # timed at the path's shapes only
                 log(f"  {name} {label}: bitwise equal")
                 continue
@@ -1051,9 +1260,6 @@ def profile(cfg, big):
         for e in sorted(kernels, key=_dev_us, reverse=True)[:12]:
             log(f"    {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
                 f"{e.key[:100]}")
-        eq = [e.count for e in events if e.key == "aten::equal"]
-        if name == "encode_batch" and eq:
-            log(f"    hysteresis convergence checks (aten::equal): {eq[0]}")
 
 def color_spaces(big, card):
     """Phase 7: every user-selectable space through encode_batch ->
@@ -1872,6 +2078,11 @@ def small_kernel_cases(dev):
                             dtype=torch.uint8).to(dev)
         out.append(("u8_to_unit", f"(2, {h}, {w}, 3)", (rgb,),
                     K.u8_to_unit_plain, K.u8_to_unit))
+        weak = torch.rand((p, h, w), generator=g).to(dev) < 0.5
+        strong = weak & (torch.rand((p, h, w), generator=g).to(dev) < 0.05)
+        out.append(("hysteresis", label, (strong, weak),
+                    lambda a, b: K.hysteresis_plain(a, b).to(torch.float32),
+                    K.hysteresis))
         space = canny._bilateral_taps(5, 75.0, 75.0)
         colour = canny._color_weights(75.0, dev)
         out.append(("bilateral", label, (img,),
@@ -2139,7 +2350,8 @@ KERNEL_NAMES = {"histogram256": "hist256_kernel",
                 "u8_to_unit": "u8_to_unit_kernel",
                 "banded_resize": "banded_",
                 "dct2d": "dct2d_kernel",
-                "bilateral": "bilateral_kernel"}
+                "bilateral": "bilateral_kernel",
+                "hysteresis": "hysteresis_"}
 SOURCES = {"histogram256": ("aejpeg_tpu_torch/csrc/histogram256.cu",
                             "aejpeg_tpu/ops/pallas_kernels.py:76"),
            "clahe_apply_gather": ("aejpeg_tpu_torch/csrc/clahe_apply.cu",
@@ -2153,7 +2365,9 @@ SOURCES = {"histogram256": ("aejpeg_tpu_torch/csrc/histogram256.cu",
            "dct2d": ("aejpeg_tpu_torch/csrc/banded_resize.cu",
                      "aejpeg_tpu/ops/dct.py:58"),
            "bilateral": ("aejpeg_tpu_torch/csrc/bilateral.cu",
-                         "aejpeg_tpu/ops/canny.py:221")}
+                         "aejpeg_tpu/ops/canny.py:221"),
+           "hysteresis": ("aejpeg_tpu_torch/csrc/hysteresis.cu",
+                          "aejpeg_tpu/ops/canny.py:341")}
 
 
 def main() -> int:

@@ -1,7 +1,8 @@
 """Phase 2 of chip_smoke.py for the XLA-ordered contraction kernels
-(csrc/banded_resize.cu: `banded_resize` and `dct2d`) and the bilateral
-filter (csrc/bilateral.cu) alone: each against its plain version on the
-card, bitwise, timed beside its bound and the route it replaced.
+(csrc/banded_resize.cu: `banded_resize` and `dct2d`), the bilateral
+filter (csrc/bilateral.cu) and the hysteresis (csrc/hysteresis.cu) alone:
+each against its plain version on the card, bitwise, timed beside its
+bound and the route it replaced.
 
     python3 tools/probe_contract.py [--quick | --path] [--kernels NAME,...]
                                     [--csrc DIR ...] [--devices I,J,...]
@@ -13,7 +14,7 @@ The cases, timings and bounds are chip_smoke.py's (`kernel_cases`,
 --quick: the cases off the main path only (small, odd and special
 shapes), untimed; --path: the cases on it only (timed), so that an
 earlier source that fails a newer off-path case can still be timed.
---kernels: a subset of banded_resize,dct2d,bilateral.  --csrc DIR: build
+--kernels: a subset of banded_resize,dct2d,bilateral,hysteresis.  --csrc DIR: build
 the kernels from the sources in DIR (into DIR/build) instead of the
 package's csrc/; given several times, each directory in turn in one process, so
 that a variant of a source and the package's are timed on one card.
@@ -65,7 +66,7 @@ sys.path.insert(0, _ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-NAMES = ("banded_resize", "dct2d", "bilateral")
+NAMES = ("banded_resize", "dct2d", "bilateral", "hysteresis")
 # the output pixels a thread of csrc/bilateral.cu computes (kRows x kCols)
 BILATERAL_PIXELS = 4 * 4
 
