@@ -99,7 +99,7 @@ def _stage_a(batch: torch.Tensor, space: str,
         src = torch.stack([converted[..., i] for i in idxs], dim=1)
         layer = resize.resize2d(src, (lh, lw), "area")       # (b, k, lh, lw)
         if level_band is not None:
-            with span("stage_a.canny"):
+            with span("stage_a.canny", planes=b * k, h=lh, w=lw):
                 edges = canny(layer.reshape(b * k, lh, lw))
             root = qt.root_size_for(lh, lw)
             cur = torch.zeros((b * k, root, root), dtype=torch.bool,

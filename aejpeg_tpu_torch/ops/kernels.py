@@ -44,7 +44,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..utils.log import count, span
+from ..utils.log import count, note, span
 from . import _build
 from .libm import (_F32_MIDPOINT, _F32_MIDPOINT_MASK, _round_to_odd,
                    _two_sum, fma32_exact, fma32_sum, ftz)
@@ -1157,7 +1157,11 @@ def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
     fits a CTA's shared memory (no host check), else bands of rows in
     rounds, one host check (`sync.hysteresis`) a group of _HYST_GROUP
     rounds.  Traced, the enclosing span counts `hysteresis_checks` (the
-    host checks: 0 on the resident path) and `hysteresis_launches`.
+    host checks: 0 on the resident path) and `hysteresis_launches`, on
+    the banded path also `hysteresis_bands` (bands a plane) and
+    `hysteresis_rounds` (the rounds that ran, up to the one that found
+    the fixpoint, read from the flag the last check pulled), and takes
+    the attr `route` ("resident", "banded"; "plain" on the CPU).
     tally: a dict that takes, on the card, the largest count of passes
     (a down and an up sweep of its rows) of one CTA (`passes`), their sum
     over CTAs and rounds (`passes_total`), the rounds that ran (`rounds`),
@@ -1168,6 +1172,7 @@ def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
     _check("hysteresis", strong, torch.bool, strong.shape, dev)
     _check("hysteresis", weak, torch.bool, strong.shape, dev)
     if not _route("hysteresis", dev):
+        note("route", "plain")
         return hysteresis_plain(strong, weak).to(torch.float32)
     p, h, w = strong.shape
     if w > 32 * 32 * _HYST_LANE_WORDS:
@@ -1184,6 +1189,7 @@ def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
         _launch("aej_hysteresis", dev, strong.data_ptr(), weak.data_ptr(),
                 out.data_ptr(), p, h, w, tal_ptr)
         launches, checks = 1, 0
+        note("route", "resident")
     else:
         state = torch.empty((p, h, -(-w // 32)), dtype=torch.int32,
                             device=dev)
@@ -1198,11 +1204,15 @@ def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
             launches += _HYST_GROUP
             checks += 1
             with span("sync.hysteresis"):
-                done = int(last.item()) < launches - 1
-            if done:
+                changed = int(last.item())
+            if changed < launches - 1:
                 break
         _launch("aej_hysteresis_unpack", dev, state.data_ptr(),
                 out.data_ptr(), p, h, w)
+        # round `changed` + 1 found nothing to grow; later ones returned
+        count("hysteresis_rounds", changed + 2)
+        count("hysteresis_bands", -(-h // rows))
+        note("route", "banded")
         launches += 1
     LAUNCHES["hysteresis"].add(launches)
     count("hysteresis_checks", checks)

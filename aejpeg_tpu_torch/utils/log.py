@@ -2,13 +2,15 @@
 
 Off unless AEJPEG_LOG names a sink: "stderr", "stdout" or a file path
 (append); "" or unset is off.  `configure()` sets it in code.  Off,
-`span()` returns one shared no-op context and `count()` returns at once:
-no clock is read, no record made, no profiler range entered.
+`span()` returns one shared no-op context, and `count()` and `note()`
+return at once: no clock is read, no record made, no profiler range
+entered.
 
-    from aejpeg_tpu_torch.utils.log import count, span
+    from aejpeg_tpu_torch.utils.log import count, note, span
     with span("codec.plan"):                 # nests under the open span
         ...
         count("hysteresis_checks", 3)        # on the innermost open span
+        note("route", "banded")              # an attr of that span
     with span("encode.batch", parent=root, batch=0):   # another thread
         ...
 
@@ -43,10 +45,15 @@ The span tree of the streams and the per-image Codec:
   encode_stream (root; images, batches, mpix)
     encode.batch (parent: the root, on a worker thread; batch, images)
       encode.push          encode.convert (cpu_ns), sync.upload
-      encode.stage_a       stage_a.canny (a layer group; counts
+      encode.stage_a       stage_a.canny (a layer group; attrs planes, h,
+                           w and the hysteresis's route: resident or
+                           banded on the card, plain on the CPU; counts
                            hysteresis_checks (host checks: 0 where every
                            plane fits the kernel's shared memory) and
-                           hysteresis_launches on the card, or
+                           hysteresis_launches on the card, and on its
+                           banded path hysteresis_bands (bands a plane)
+                           and hysteresis_rounds (rounds that ran, to the
+                           one that found the fixpoint); or
                            hysteresis_checks, hysteresis_steps on the CPU)
                              sync.hysteresis (each host check)
                            sync.levels
@@ -344,6 +351,17 @@ def count(name: str, n: int = 1) -> None:
     if stack:
         c = stack[-1].counts
         c[name] = c.get(name, 0) + n
+
+
+def note(name: str, value: Any) -> None:
+    """Set attr `name` of the calling thread's innermost open span to
+    `value` (nothing when tracing is off or no span is open)."""
+    log = _logger or get_logger()
+    if log._sink is None:
+        return
+    stack = log._thread().stack
+    if stack:
+        stack[-1].attrs[name] = value
 
 
 def stages(prefix: str, order: Sequence[str]):

@@ -215,12 +215,15 @@ def test_hysteresis_card_route(monkeypatch, budget, converged, launches,
     every plane fits, else rounds in groups of four with one check a
     group until a round changed nothing, then the unpack.  Counted on the
     launch counter and as `hysteresis_checks` / `hysteresis_launches` of
-    the enclosing span."""
-    calls, counted = [], {}
+    the enclosing span; on the banded path also `hysteresis_bands` (6
+    bands of 86 rows: 99 fit the budget) and `hysteresis_rounds` (round
+    `converged` + 1 found the fixpoint), and the span's `route`."""
+    calls, counted, noted = [], {}, {}
     monkeypatch.setattr(K, "_route", lambda name, device: True)
     monkeypatch.setattr(K, "_smem_budget", lambda device: budget)
     monkeypatch.setattr(K, "count", lambda name, n=1: counted.update(
         {name: counted.get(name, 0) + n}))
+    monkeypatch.setattr(K, "note", lambda name, v: noted.update({name: v}))
 
     def launch(name, device, *args):
         calls.append(name)
@@ -239,5 +242,8 @@ def test_hysteresis_card_route(monkeypatch, budget, converged, launches,
         assert calls == ["aej_hysteresis_rounds"] * checks \
             + ["aej_hysteresis_unpack"]
     assert K.LAUNCHES["hysteresis"].n == before + launches
+    banded = {} if converged is None else {"hysteresis_bands": 6,
+                                           "hysteresis_rounds": converged + 2}
     assert counted == {"hysteresis_checks": checks,
-                       "hysteresis_launches": launches}
+                       "hysteresis_launches": launches, **banded}
+    assert noted == {"route": "resident" if converged is None else "banded"}
