@@ -9,7 +9,8 @@ reference's Jpeg.compress / Jpeg.decompress, src/jpeg/jpeg.py:240-297):
   host:   quadtree plan per layer
   device: per block size, gather the plan's leaf blocks (reflect-padded)
           from the normalized layer -> DCT -> quantize -> zigzag
-  host:   preorder coefficient stream -> deflate -> .ajpg container
+  host:   preorder coefficient stream -> deflate (on a pool thread, as
+          soon as the layer's stream is built) -> .ajpg container
 
 Decode inverts each stage: container parse -> state replay -> per size
 inverse zigzag -> dequantize -> IDCT -> canvas paint -> crop ->
@@ -22,6 +23,9 @@ pads each size bucket to a power-of-two capacity to bound XLA recompiles;
 eager PyTorch has none to bound, so the buckets run at their true size.
 """
 
+import os
+import threading
+from concurrent import futures
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,7 +40,7 @@ from ..native import deflate_parallel
 from ..ops import dct, quant, resize, zigzag
 from ..ops.canny import canny
 from ..ops.rounding import divide
-from ..utils.log import span
+from ..utils.log import count, span
 from . import quadtree as qt
 
 
@@ -110,6 +114,38 @@ def _color_and_downsample(rgb: torch.Tensor, space: str,
         for j, i in enumerate(idxs):
             layers[i] = out[j]
     return tuple(layers)
+
+
+_DEFLATE_POOL: Optional[futures.ThreadPoolExecutor] = None
+_DEFLATE_LOCK = threading.Lock()
+
+
+def _forget_deflate_pool() -> None:
+    """A forked child has none of its parent's threads: it makes its own
+    pool."""
+    global _DEFLATE_POOL
+    _DEFLATE_POOL = None
+
+
+os.register_at_fork(after_in_child=_forget_deflate_pool)
+
+
+def _deflate_pool() -> futures.ThreadPoolExecutor:
+    """The `Codec`'s deflate workers, one a layer, made at first use.  A
+    worker runs one layer's `deflate_parallel`, whose native call releases
+    the GIL, so a layer deflates while the next one is built."""
+    global _DEFLATE_POOL
+    with _DEFLATE_LOCK:
+        if _DEFLATE_POOL is None:
+            _DEFLATE_POOL = futures.ThreadPoolExecutor(
+                3, thread_name_prefix="aejpeg-deflate")
+        return _DEFLATE_POOL
+
+
+def _deflate_layer(coeffs: np.ndarray, level: int) -> bytes:
+    """One layer's int32-LE coefficient stream as its zlib stream."""
+    return deflate_parallel(
+        np.ascontiguousarray(coeffs, dtype="<i4").tobytes(), level=level)
 
 
 def _canny_plane(layer: torch.Tensor) -> torch.Tensor:
@@ -188,47 +224,73 @@ class Codec:
         writer = ContainerWriter(ContainerMetadata(
             height=h, width=w, num_layers=3, color_space=cfg.color_space,
             quality_min=cfg.quality_range[0], quality_max=cfg.quality_range[1],
-            block_size_min=mn, block_size_max=mx, extension=img.extension),
-            compress=lambda b: deflate_parallel(b, level=cfg.entropy_level))
+            block_size_min=mn, block_size_max=mx, extension=img.extension))
+        # a layer deflates on the pool from the moment it is packed, beside
+        # the next layers' work; codec.deflate is what the request still
+        # waits on
+        pool = _deflate_pool()
+        payloads: List[LayerPayload] = []
+        pending: List[futures.Future] = []
+        try:
+            for i, layer in enumerate(layers):
+                payloads.append(self._encode_layer(
+                    i, layer, layer_shapes[i], tables, mids, scales))
+                pending.append(pool.submit(
+                    _deflate_layer, payloads[-1].coeffs, cfg.entropy_level))
+            count("deflate_ahead", len(pending))
+            with span("codec.deflate"):
+                for payload, f in zip(payloads, pending):
+                    payload.compressed = f.result()
+                    writer.add_layer(payload)
+                return writer.tobytes()
+        except BaseException:
+            # no deflate outlives the call, so the Codec stays reusable
+            for f in pending:
+                f.cancel()
+            futures.wait(pending)
+            raise
 
-        for i, layer in enumerate(layers):
-            lh, lw = layer_shapes[i]
-            if mn == mx:
-                # uniform grid: the tree never consults edges
-                with span("codec.plan"):
-                    plan = qt.uniform_plan(lh, lw, mn)
-            else:
-                with span("codec.edges"):
-                    edge = self.edge_fn(layer)
-                    if isinstance(edge, torch.Tensor):
-                        edge = self._host(edge)
-                with span("codec.plan"):
-                    plan = qt.build_plan(np.asarray(edge), mx, mn)
-            with span("codec.blocks"):
-                norm = (layer - self._tensor(mids[i])) \
-                    * self._tensor(scales[i])
-                sizes64 = plan.leaf_sizes.astype(np.int64)
-                offsets = np.zeros(len(sizes64) + 1, np.int64)
-                np.cumsum(sizes64 * sizes64, out=offsets[1:])
-                coeffs = np.empty(int(offsets[-1]), np.int32)
-                for s, idx in plan.buckets().items():
-                    inv_hi, inv_lo = quant.reciprocal_table(
-                        self._quant_table_for(tables, i, s))
-                    vecs = _encode_bucket(
-                        norm, self._tensor(plan.leaf_y[idx], torch.int64),
-                        self._tensor(plan.leaf_x[idx], torch.int64),
-                        self._tensor(inv_hi), self._tensor(inv_lo), s, lh,
-                        lw)
-                    flat_idx = (offsets[idx][:, None]
-                                + np.arange(s * s, dtype=np.int64)[None, :])
-                    coeffs[flat_idx.ravel()] = self._host(vecs).ravel()
-            with span("codec.pack"):
-                states_bytes, bits_len = qt.pack_states(plan.states)
-                writer.add_layer(LayerPayload(
-                    bits_len=bits_len, root_size=plan.root_size,
-                    states_bytes=states_bytes, coeffs=coeffs))
-        with span("codec.deflate"):
-            return writer.tobytes()
+    def _encode_layer(self, i: int, layer: torch.Tensor,
+                      shape: Tuple[int, int], tables, mids, scales
+                      ) -> LayerPayload:
+        """Layer `i`'s plan and coefficient stream (not yet deflated)."""
+        cfg = self.config
+        mn, mx = cfg.block_size_range
+        lh, lw = shape
+        if mn == mx:
+            # uniform grid: the tree never consults edges
+            with span("codec.plan"):
+                plan = qt.uniform_plan(lh, lw, mn)
+        else:
+            with span("codec.edges"):
+                edge = self.edge_fn(layer)
+                if isinstance(edge, torch.Tensor):
+                    edge = self._host(edge)
+            with span("codec.plan"):
+                plan = qt.build_plan(np.asarray(edge), mx, mn)
+        with span("codec.blocks"):
+            norm = (layer - self._tensor(mids[i])) \
+                * self._tensor(scales[i])
+            sizes64 = plan.leaf_sizes.astype(np.int64)
+            offsets = np.zeros(len(sizes64) + 1, np.int64)
+            np.cumsum(sizes64 * sizes64, out=offsets[1:])
+            coeffs = np.empty(int(offsets[-1]), np.int32)
+            for s, idx in plan.buckets().items():
+                inv_hi, inv_lo = quant.reciprocal_table(
+                    self._quant_table_for(tables, i, s))
+                vecs = _encode_bucket(
+                    norm, self._tensor(plan.leaf_y[idx], torch.int64),
+                    self._tensor(plan.leaf_x[idx], torch.int64),
+                    self._tensor(inv_hi), self._tensor(inv_lo), s, lh,
+                    lw)
+                flat_idx = (offsets[idx][:, None]
+                            + np.arange(s * s, dtype=np.int64)[None, :])
+                coeffs[flat_idx.ravel()] = self._host(vecs).ravel()
+        with span("codec.pack"):
+            states_bytes, bits_len = qt.pack_states(plan.states)
+            return LayerPayload(
+                bits_len=bits_len, root_size=plan.root_size,
+                states_bytes=states_bytes, coeffs=coeffs)
 
     # ------------------------------------------------------------- decode
     def decompress(self, data: bytes) -> ImageData:

@@ -65,11 +65,13 @@ The span tree of the streams and the per-image Codec:
       decode.push          sync.upload
       decode.device
       decode.pull          sync.pull
-  codec.compress (root)    codec.tables, codec.color, then a layer:
-                           codec.edges (the Canny stack, its checks and
-                           counts, and the edge map's sync.pull),
-                           codec.plan, codec.blocks, codec.pack; then
-                           codec.deflate
+  codec.compress (root;    codec.tables, codec.color, then a layer:
+    counts deflate_ahead,  codec.edges (the Canny stack, its checks and
+    the layers whose       counts, and the edge map's sync.pull),
+    deflate began before   codec.plan, codec.blocks, codec.pack (then the
+    codec.deflate)         layer's deflate starts on a pool thread, which
+                           opens no span); then codec.deflate (the wait
+                           for those deflates, and the container written)
   codec.decompress (root)  codec.parse (the header), codec.tables, then a
                            layer: codec.parse, codec.blocks,
                            codec.upsample; then codec.color, sync.pull
