@@ -8,11 +8,10 @@ dense design:
       levels (bit-packed) and normalized planes padded to the block grid.
   stage B (device, queued BEFORE the host plans): for every block size s
       in the config band, DCT + quantize + zigzag of the whole padded plane
-      as if uniformly tiled by s (ops/dct.py: the same contraction as the
-      per-image Codec's) -> dense per-size zigzag-int16 tables, one
-      row per grid cell; plus a small "slow" table of every possible
-      boundary (partial) block, reflect-padded like the reference
-      (src/jpeg/jpeg.py:398-402).
+      as if uniformly tiled by s (ops/dct.py) -> dense per-size
+      zigzag-int16 tables, one row per grid cell; plus a small "slow" table
+      of every possible boundary (partial) block, reflect-padded like the
+      reference (src/jpeg/jpeg.py:398-402).
   host (overlapped with stage B): the packed levels come to the host first,
       then the native C++ planner builds the quadtree plans.
   host: the tables come to the host in one copy; per (image, layer), C++
@@ -265,14 +264,16 @@ def _build_plans(cfg: CodecConfig, layer_shapes, levels_bits: np.ndarray,
 
 
 def assemble_native(cfg: CodecConfig, spec: BatchSpec, plans, shards,
-                    b: int):
+                    b: int, sparse16: bool = True):
     """Batched C++ stream assembly + entropy coding from the host dense
     tables: returns (arena, arena_offs, out_sizes); task t = (bi*3 + li)'s
     payload is arena[arena_offs[t] : arena_offs[t] + out_sizes[t]].
 
     shards: [(dense_np, slow_np)], one per shard of b // len(shards)
     consecutive images, each holding its images' planes in _table_layout
-    order (one entry for the whole batch on a single device)."""
+    order (one entry for the whole batch on a single device).  sparse16:
+    the sparse coder at entropy level < 0 (native/entropy.cpp
+    aej_layer_payload)."""
     n_tasks = 3 * b
     b_loc = b // len(shards)
     lp_s = np.empty(n_tasks, np.uint64)
@@ -324,7 +325,7 @@ def assemble_native(cfg: CodecConfig, spec: BatchSpec, plans, shards,
     arena = native_entropy.scratch_arena("assemble", int(arena_offs[-1]))
     out_sizes = native_entropy.assemble_batch_native(
         lp_s, lp_y, lp_x, n_leaves, hs, ws, pws, tbl, slw,
-        cfg.entropy_level, arena, arena_offs)
+        cfg.entropy_level, arena, arena_offs, sparse16=sparse16)
     if out_sizes is None:
         raise RuntimeError("native stream assembly failed")
     return arena, arena_offs, out_sizes
@@ -420,6 +421,16 @@ def encode_batch(images: Sequence[ImageData], config: CodecConfig,
     (parallel/batch.py sharded_dense_device_fn); 'stage_a' then includes
     the push.  len(images) must divide evenly.  The containers
     are byte-identical to the single-device path's."""
+    return _encode(images, config, timings, device, mesh, data_axes)
+
+
+def _encode(images: Sequence[ImageData], config: CodecConfig,
+            timings: Optional[Dict[str, float]] = None, device=None,
+            mesh=None, data_axes=None, sparse16: bool = True) -> List[bytes]:
+    """encode_batch, with the sparse coder of entropy level < 0 to choose:
+    the coefficient-domain one (sparse16, encode_batch's bytes) or the
+    byte-level one (the per-image Codec's bytes, pipeline.py).  At level 0
+    and above the flag changes nothing."""
     if mesh is not None and device is not None:
         raise ValueError("pass a device or a mesh, not both")
     dev = resolve_device(device) if mesh is None else None
@@ -478,7 +489,7 @@ def encode_batch(images: Sequence[ImageData], config: CodecConfig,
 
         with span("assemble.native"):
             arena, arena_offs, out_sizes = assemble_native(
-                cfg, spec, plans, shards, b)
+                cfg, spec, plans, shards, b, sparse16)
         with span("assemble.containers"):
             out = _containers(images, cfg, h, w, plans, arena, arena_offs,
                               out_sizes)

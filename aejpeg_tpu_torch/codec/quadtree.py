@@ -54,13 +54,6 @@ class QuadPlan:
             return self.states_packed, self.bits_len
         return pack_states(self.states)
 
-    def buckets(self) -> Dict[int, np.ndarray]:
-        """size -> indices into the preorder leaf arrays, preorder-stable."""
-        out = {}
-        for s in np.unique(self.leaf_sizes):
-            out[int(s)] = np.nonzero(self.leaf_sizes == s)[0].astype(np.int32)
-        return out
-
 
 def _interleave_bits(i: np.ndarray, j: np.ndarray, nbits: int) -> np.ndarray:
     """Morton code with i (row) in the high bit of each pair: the child order
@@ -195,61 +188,3 @@ def pack_states(states: np.ndarray) -> Tuple[bytes, int]:
     bits[1::2] = states & 1
     return np.packbits(bits).tobytes(), int(bits.size)
 
-
-def unpack_states(data: bytes, bits_len: int) -> np.ndarray:
-    """Bytes -> uint8 states (src/jpeg/jpeg.py:643-649)."""
-    bits = np.unpackbits(np.frombuffer(data, dtype=np.uint8))
-    n = bits_len // 2
-    pairs = bits[:2 * n].reshape(n, 2)
-    return (pairs[:, 0] * 2 + pairs[:, 1]).astype(np.uint8)
-
-
-def decode_leaf_sizes(states: np.ndarray, root_size: int) -> List[int]:
-    """Stack replay of the preorder states -> leaf sizes
-    (parity: src/jpeg/jpeg.py:768-800)."""
-    leaf_sizes: List[int] = []
-    stack = [root_size]
-    idx = 0
-    n = len(states)
-    while stack and idx < n:
-        size = stack.pop()
-        st = states[idx]
-        idx += 1
-        if st == STATE_LEAF:
-            leaf_sizes.append(size)
-        elif st == STATE_SPLIT:
-            half = size // 2
-            stack.extend([half, half, half, half])
-    return leaf_sizes
-
-
-def replay_positions(states: np.ndarray, root_size: int, h: int, w: int
-                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Spatial replay of the preorder states -> (sizes, y, x) of each leaf,
-    in the same order the encoder emitted them (mirrors the traversal of
-    src/jpeg/jpeg.py:410-448 but driven by states instead of leaf shapes).
-    Uses the native C++ replay when available (~100x the Python loop)."""
-    from ..native.entropy import replay_states
-    native = replay_states(states, root_size)
-    if native is not None:
-        return native
-    sizes, ys, xs = [], [], []
-    stack = [(0, 0, root_size)]
-    idx = 0
-    n = len(states)
-    while stack and idx < n:
-        x, y, size = stack.pop()
-        st = states[idx]
-        idx += 1
-        if st == STATE_LEAF:
-            sizes.append(size)
-            ys.append(y)
-            xs.append(x)
-        elif st == STATE_SPLIT:
-            half = size // 2
-            stack.append((x + half, y + half, half))
-            stack.append((x, y + half, half))
-            stack.append((x + half, y, half))
-            stack.append((x, y, half))
-    return (np.asarray(sizes, np.int32), np.asarray(ys, np.int32),
-            np.asarray(xs, np.int32))

@@ -14,9 +14,10 @@ import torch
 
 from .. import resolve_device
 from ..codec import quadtree as qt
-from ..codec.pipeline import Codec, _color_and_downsample
 from ..config import CodecConfig
 from ..io.image import ImageData
+from ..ops.canny import canny
+from ..parallel.batch import color_and_downsample
 
 
 def _overlay(layer: np.ndarray, plan: qt.QuadPlan) -> np.ndarray:
@@ -40,19 +41,16 @@ def visualize(img_path: str, out_dir: str,
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     img = ImageData.load(img_path)
-    codec = Codec(cfg, device=dev)
     h, w = img.original_shape[:2]
-    layers = _color_and_downsample(torch.as_tensor(img.data, device=dev),
-                                   cfg.color_space, cfg.layer_shapes((h, w)))
+    layers = color_and_downsample(torch.as_tensor(img.data, device=dev),
+                                  cfg.color_space, cfg.layer_shapes((h, w)))
 
     timings = {}
     names = ["luminance", "chroma1", "chroma2"]
     for i, name in enumerate(names):
         layer = layers[i].cpu().numpy()
         t0 = time.perf_counter()
-        edge = codec.edge_fn(layers[i])
-        edge = np.asarray(edge.cpu() if isinstance(edge, torch.Tensor)
-                          else edge)
+        edge = canny(layers[i][None])[0].cpu().numpy()
         timings[f"{name}_edge_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         plan = qt.build_plan(edge, cfg.block_size_range[1],

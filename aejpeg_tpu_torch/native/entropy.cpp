@@ -1912,40 +1912,6 @@ size_t aej_inflate(const unsigned char* src, size_t len, unsigned char* dst,
   return aej_inflate_impl(src, len, dst, dst_cap);
 }
 
-// Preorder stack replay of 2-bit quadtree states -> leaf (size, y, x),
-// mirroring the reference traversal (src/jpeg/jpeg.py:768-800 and
-// codec/quadtree.py replay_positions).  Output arrays must have capacity
-// n_states.  Returns the number of leaves.
-size_t aej_replay_states(const unsigned char* states, size_t n_states,
-                         int root_size, int32_t* sizes, int32_t* ys,
-                         int32_t* xs) {
-  struct Node {
-    int32_t x, y, size;
-  };
-  std::vector<Node> stack;
-  stack.reserve(128);
-  stack.push_back({0, 0, root_size});
-  size_t idx = 0, out = 0;
-  while (!stack.empty() && idx < n_states) {
-    Node nd = stack.back();
-    stack.pop_back();
-    unsigned char st = states[idx++];
-    if (st == 0) {
-      sizes[out] = nd.size;
-      ys[out] = nd.y;
-      xs[out] = nd.x;
-      ++out;
-    } else if (st == 1) {
-      int32_t half = nd.size >> 1;
-      stack.push_back({nd.x + half, nd.y + half, half});
-      stack.push_back({nd.x, nd.y + half, half});
-      stack.push_back({nd.x + half, nd.y, half});
-      stack.push_back({nd.x, nd.y, half});
-    }
-  }
-  return out;
-}
-
 // Preorder quadtree plan from pooled has-edge level masks — the native
 // version of codec/quadtree.py plan_from_levels.  One stack DFS emits the
 // 2-bit state stream and the leaf (size, y, x) lists in preorder directly
@@ -2157,14 +2123,18 @@ static inline int64_t boundary_rank(int32_t y, int32_t x, int32_t s,
 // deflate in place.  `tables[k]`/`slow[k]` are indexed by k = log2(block
 // size); `tables[k]` points at THIS plane's (gh*gw, s*s) rows, `slow[k]` at
 // this plane's first boundary row, `pw` is the padded plane width (grid
-// stride).  Returns the compressed size, 0 on failure.
+// stride).  At level < 0, `sparse16` picks the sparse coder: nonzero, the
+// coefficient-domain one (aej_payload16, the batch encoder's bytes); zero,
+// the byte-level one over the int32 widening (aej_deflate_parallel, the
+// per-image encoder's bytes).  Both cut the stream into fixed 1 MiB chunks,
+// so `threads` changes no byte.  Returns the compressed size, 0 on failure.
 size_t aej_layer_payload(const int32_t* leaf_sizes, const int32_t* leaf_y,
                          const int32_t* leaf_x, int64_t n_leaves, int32_t h,
                          int32_t w, int32_t pw,
                          const int16_t* const* tables,
                          const int16_t* const* slow, int32_t level,
-                         int32_t threads, unsigned char* out,
-                         size_t out_cap) {
+                         int32_t sparse16, int32_t threads,
+                         unsigned char* out, size_t out_cap) {
   int64_t total = 0;
   for (int64_t i = 0; i < n_leaves; ++i)
     total += static_cast<int64_t>(leaf_sizes[i]) * leaf_sizes[i];
@@ -2188,11 +2158,12 @@ size_t aej_layer_payload(const int32_t* leaf_sizes, const int32_t* leaf_y,
     std::memcpy(dst, src, static_cast<size_t>(s2) * 2);
     dst += s2;
   }
-  if (level < 0) {
+  if (level < 0 && sparse16) {
     return aej_payload16(raw.data(), static_cast<size_t>(total), threads,
                          out, out_cap);
   }
-  // reference-parity path: materialize the int32 widening and zlib it
+  // materialize the int32 widening and zlib it (or, at level < 0, sparse
+  // code its bytes)
   std::vector<int32_t> wide(static_cast<size_t>(total));
   for (int64_t j = 0; j < total; ++j) wide[j] = raw[j];
   return aej_deflate_parallel(
@@ -2206,7 +2177,9 @@ size_t aej_layer_payload(const int32_t* leaf_sizes, const int32_t* leaf_y,
 // call per batch.  leaf_* / tables / slow are per-task pointer arrays
 // (tables/slow: 8 slots per task); the payload for task i is written into
 // arena[arena_offs[i] .. arena_offs[i+1]) and its size into out_sizes[i]
-// (-1 on failure).  Returns the number of failed tasks.
+// (-1 on failure).  A task gets the threads that fewer tasks than threads
+// leave idle, for its chunks (one image's three layers: luma's chunks
+// deflate at once).  Returns the number of failed tasks.
 int64_t aej_assemble_batch(int64_t n_tasks,
                            const int32_t* const* leaf_sizes,
                            const int32_t* const* leaf_ys,
@@ -2215,14 +2188,17 @@ int64_t aej_assemble_batch(int64_t n_tasks,
                            const int32_t* ws, const int32_t* pws,
                            const int16_t* const* tables,
                            const int16_t* const* slow, int32_t level,
-                           int32_t threads, unsigned char* arena,
-                           const int64_t* arena_offs, int64_t* out_sizes) {
+                           int32_t sparse16, int32_t threads,
+                           unsigned char* arena, const int64_t* arena_offs,
+                           int64_t* out_sizes) {
   std::atomic<int64_t> failed(0);
+  const int32_t per_task = static_cast<int32_t>(
+      std::max<int64_t>(1, threads / std::max<int64_t>(1, n_tasks)));
   run_tasks(static_cast<size_t>(n_tasks), threads, [&](size_t i) {
     size_t cap = static_cast<size_t>(arena_offs[i + 1] - arena_offs[i]);
     size_t n = aej_layer_payload(
         leaf_sizes[i], leaf_ys[i], leaf_xs[i], n_leaves[i], hs[i], ws[i],
-        pws[i], tables + 8 * i, slow + 8 * i, level, 1,
+        pws[i], tables + 8 * i, slow + 8 * i, level, sparse16, per_task,
         arena + arena_offs[i], cap);
     if (n == 0 && n_leaves[i] > 0) {
       out_sizes[i] = -1;

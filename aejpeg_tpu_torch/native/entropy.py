@@ -147,10 +147,6 @@ def _load() -> Optional[ctypes.CDLL]:
                                     ctypes.c_void_p, ctypes.c_size_t]
         lib.aej_deflate_bound.restype = ctypes.c_size_t
         lib.aej_deflate_bound.argtypes = [ctypes.c_size_t, ctypes.c_size_t]
-        lib.aej_replay_states.restype = ctypes.c_size_t
-        lib.aej_replay_states.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
         lib.aej_build_plan.restype = ctypes.c_size_t
         lib.aej_build_plan.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -166,7 +162,8 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_void_p, ctypes.c_size_t]
+            ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+            ctypes.c_size_t]
         lib.aej_decode_layer.restype = ctypes.c_int64
         lib.aej_decode_layer.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_char_p,
@@ -177,9 +174,8 @@ def _load() -> Optional[ctypes.CDLL]:
             [ctypes.c_void_p] * 9 + [ctypes.c_int32, ctypes.c_void_p]
         lib.aej_assemble_batch.restype = ctypes.c_int64
         lib.aej_assemble_batch.argtypes = [ctypes.c_int64] + \
-            [ctypes.c_void_p] * 9 + [ctypes.c_int32, ctypes.c_int32,
-                                     ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_void_p]
+            [ctypes.c_void_p] * 9 + [ctypes.c_int32] * 3 + \
+            [ctypes.c_void_p] * 3
         lib.aej_build_plans_batch.restype = ctypes.c_int64
         lib.aej_build_plans_batch.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
@@ -227,25 +223,6 @@ def inflate(data: bytes, max_out: int) -> bytes:
     return buf[:n].tobytes()
 
 
-def replay_states(states, root_size: int):
-    """Preorder stack replay of quadtree states -> (sizes, ys, xs) int32
-    arrays, or None if the native library is unavailable (callers fall back
-    to the Python replay)."""
-    lib = _load()
-    if lib is None:
-        return None
-    st = np.ascontiguousarray(states, dtype=np.uint8)
-    n = st.size
-    sizes = np.empty(n, np.int32)
-    ys = np.empty(n, np.int32)
-    xs = np.empty(n, np.int32)
-    m = lib.aej_replay_states(st.tobytes(), n, root_size,
-                              sizes.ctypes.data_as(ctypes.c_void_p),
-                              ys.ctypes.data_as(ctypes.c_void_p),
-                              xs.ctypes.data_as(ctypes.c_void_p))
-    return sizes[:m], ys[:m], xs[:m]
-
-
 def payload16(coeffs, threads: int = 1) -> Optional[bytes]:
     """Compress int16 coefficients as the zlib stream of their int32-LE
     widening (coefficient-domain sparse encoder; zlib.decompress of the
@@ -264,12 +241,14 @@ def payload16(coeffs, threads: int = 1) -> Optional[bytes]:
 
 
 def layer_payload(leaf_sizes, leaf_y, leaf_x, h: int, w: int, pw: int,
-                  table_ptrs, slow_ptrs, level: int, threads: int = 1):
+                  table_ptrs, slow_ptrs, level: int, threads: int = 1,
+                  sparse16: bool = True):
     """Assemble one layer's preorder coefficient stream from dense
     zigzag-int16 tables (see entropy.cpp aej_layer_payload) and deflate it.
     `table_ptrs`/`slow_ptrs` are (ctypes.c_void_p * 8) arrays indexed by
-    log2(size).  Returns the compressed bytes, or None when the native
-    library is unavailable or the call fails."""
+    log2(size); `sparse16` picks the sparse coder at level < 0.  Returns
+    the compressed bytes, or None when the native library is unavailable
+    or the call fails."""
     lib = _load()
     if lib is None:
         return None
@@ -286,7 +265,7 @@ def layer_payload(leaf_sizes, leaf_y, leaf_x, h: int, w: int, pw: int,
         len(sizes), h, w, pw,
         ctypes.cast(table_ptrs, ctypes.c_void_p),
         ctypes.cast(slow_ptrs, ctypes.c_void_p),
-        level, threads, out, bound)
+        level, int(sparse16), threads, out, bound)
     if n == 0 and total > 0:
         return None
     return buf[:n].tobytes()
@@ -342,10 +321,12 @@ def decode_batch_native(states_ptrs, bits_lens, root_sizes, comp_ptrs,
 def assemble_batch_native(leaf_size_ptrs, leaf_y_ptrs, leaf_x_ptrs,
                           n_leaves, hs, ws, pws, table_ptrs, slow_ptrs,
                           level: int, arena, arena_offs,
-                          threads: Optional[int] = None):
+                          threads: Optional[int] = None,
+                          sparse16: bool = True):
     """One call assembling + entropy-coding n (image, layer) payloads on a
-    C++ thread pool (see entropy.cpp aej_assemble_batch).  Returns the
-    per-task payload sizes (-1 = failure), or None when unavailable."""
+    C++ thread pool (see entropy.cpp aej_assemble_batch; `sparse16` as in
+    layer_payload).  Returns the per-task payload sizes (-1 = failure), or
+    None when unavailable."""
     lib = _load()
     if lib is None:
         return None
@@ -357,7 +338,8 @@ def assemble_batch_native(leaf_size_ptrs, leaf_y_ptrs, leaf_x_ptrs,
         n, leaf_size_ptrs.ctypes.data, leaf_y_ptrs.ctypes.data,
         leaf_x_ptrs.ctypes.data, n_leaves.ctypes.data, hs.ctypes.data,
         ws.ctypes.data, pws.ctypes.data, table_ptrs.ctypes.data,
-        slow_ptrs.ctypes.data, level, threads, arena.ctypes.data,
+        slow_ptrs.ctypes.data, level, int(sparse16), threads,
+        arena.ctypes.data,
         arena_offs.ctypes.data, out.ctypes.data)
     if failed:
         return None

@@ -21,8 +21,7 @@ The passes read the blocks where they lie: the first contracts axis 1 of a
 columns, so dense planes (P, ph, pw) and gathered blocks (N, s, s) take the
 same kernel without a copy.  A per-block call and a dense call give the
 same bits whenever their dots have the same M (a bucket of N blocks of a
-(P, ph, pw) stack: N * s == P * ph * pw / s), which is why `Codec` and
-`encode_batch` agree bit for bit.
+(P, ph, pw) stack: N * s == P * ph * pw / s).
 """
 
 import functools
@@ -76,7 +75,7 @@ def dct2(blocks: torch.Tensor, capacity: Optional[int] = None
     """Forward 2-D DCT-II over a batch: (..., s, s) -> (..., s, s), D X D^T
     (the block's rows contracted first, as in the JAX package).  capacity:
     the number of blocks of the reference's dot, where it pads the batch
-    (the `Codec`'s buckets)."""
+    (the JAX `Codec`'s buckets)."""
     s = blocks.shape[-1]
     x = blocks.reshape(-1, s, s).contiguous()
     return _passes(x, s, False, _capacity_rows(x.shape[0], s, capacity)

@@ -22,18 +22,36 @@ its images, and the containers and decodes are the single-device path's.
 
 import functools
 from contextlib import nullcontext
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import color, resolve_device
-from ..codec.pipeline import _canny_plane, _color_and_downsample
 from ..codec.quadtree import _interleave_bits
 from ..config import CodecConfig
-from ..ops import dct, quant
+from ..ops import dct, quant, resize
+from ..ops.canny import canny
 from ..utils.mathutils import root_size_for
 from .mesh import shard_devices
+
+
+def color_and_downsample(rgb: torch.Tensor, space: str,
+                         layer_shapes: Tuple[Tuple[int, int], ...]
+                         ) -> Tuple[torch.Tensor, ...]:
+    """sRGB (H, W, 3) -> the downsampled layers (reference order: convert,
+    src/jpeg/jpeg.py:262-264, then per-layer INTER_AREA resize,
+    src/jpeg/jpeg.py:323-338).  Layers of one shape are resized as one
+    stack, as encode_batch's stage A resizes them."""
+    converted = color.convert("sRGB", space, rgb)
+    layers: List[Optional[torch.Tensor]] = [None] * len(layer_shapes)
+    for shape in dict.fromkeys(layer_shapes):
+        idxs = [i for i, sh in enumerate(layer_shapes) if sh == shape]
+        src = torch.stack([converted[..., i] for i in idxs])[None]
+        out = resize.resize2d(src, shape, "area")[0]
+        for j, i in enumerate(idxs):
+            layers[i] = out[j]
+    return tuple(layers)
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,9 +100,9 @@ def device_encode_uniform(rgb, space: str, block: int = 8,
     shapes = cfg.layer_shapes(tuple(rgb.shape[-3:-1]))
     mids, scales = color.normalization_constants(space)
     out = {"coeffs": [], "edges": []}
-    for i, layer in enumerate(_color_and_downsample(rgb, space, shapes)):
+    for i, layer in enumerate(color_and_downsample(rgb, space, shapes)):
         if with_edges:
-            out["edges"].append(_canny_plane(layer))
+            out["edges"].append(canny(layer[None])[0])
         norm = ((layer - torch.as_tensor(mids[i], device=dev))
                 * torch.as_tensor(scales[i], device=dev))
         table = quant.quantization_matrix(

@@ -7,7 +7,7 @@ return at once: no clock is read, no record made, no profiler range
 entered.
 
     from aejpeg_tpu_torch.utils.log import count, note, span
-    with span("codec.plan"):                 # nests under the open span
+    with span("encode.plans"):               # nests under the open span
         ...
         count("hysteresis_checks", 3)        # on the innermost open span
         note("route", "banded")              # an attr of that span
@@ -65,18 +65,11 @@ The span tree of the streams and the per-image Codec:
       decode.push          sync.upload
       decode.device
       decode.pull          sync.pull
-  codec.compress (root;    codec.tables, codec.color, then a layer:
-    counts deflate_ahead,  codec.edges (the Canny stack, its checks and
-    the layers whose       counts, and the edge map's sync.pull),
-    deflate began before   codec.plan, codec.blocks, codec.pack (then the
-    codec.deflate)         layer's deflate starts on a pool thread, which
-                           opens no span); then codec.deflate (the wait
-                           for those deflates, and the container written)
-  codec.decompress (root)  codec.parse (the header), codec.tables, then a
-                           layer: codec.parse, codec.blocks,
-                           codec.upsample; then codec.color, sync.pull
-  Every blocking upload and pull of the Codec is a sync.upload or
-  sync.pull span under the span that needs it.
+  codec.compress (root)    the encode_batch stages above on one image
+                           (encode.push ... encode.assemble, as under
+                           encode.batch)
+  codec.decompress (root)  the decode_batch stages above on one container
+                           (decode.parse ... decode.pull)
 
 The device time under a span is read from a profiler trace: the span's
 `record_function` range, or its [start_ns, end_ns] on the trace's clock.

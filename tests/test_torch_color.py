@@ -16,6 +16,11 @@ torch.set_num_threads(1)
 
 SPACES = ["sRGB", "YCbCr", "YCoCg", "YCoCg-R", "XYZ", "OKLAB", "ICtCp",
           "ICaCb", "JzAzBz"]
+# the PQ spaces' test_matches_jax and test_matches_jax_random cases run in
+# a file of their own each (test_torch_color_<space>.py): their 1 M-pixel
+# conversions take minutes on one thread
+PQ_SPACES = ["ICtCp", "ICaCb", "JzAzBz"]
+NON_PQ = [s for s in SPACES if s not in PQ_SPACES]
 
 
 @pytest.fixture(scope="module")
@@ -37,8 +42,7 @@ def _check_bitwise(space, rgb):
     np.testing.assert_array_equal(back, want_back)
 
 
-@pytest.mark.parametrize("space", SPACES)
-def test_matches_jax(space, lattice):
+def check_matches_jax(space, lattice):
     """Forward and inverse bitwise equal to JAX (jitted for the CPU) on the
     sRGB lattice and on the forward image of it."""
     _check_bitwise(space, lattice)
@@ -48,12 +52,21 @@ def test_matches_jax(space, lattice):
     np.testing.assert_array_equal(scale, jscale)
 
 
-@pytest.mark.parametrize("space", SPACES[1:])
-def test_matches_jax_random(space):
+def check_matches_jax_random(space):
     """Forward and inverse bitwise equal to JAX on 1 M random float
     pixels in [0, 1)."""
     rgb = np.random.default_rng(11).random((1_000_000, 3), dtype=np.float32)
     _check_bitwise(space, rgb)
+
+
+@pytest.mark.parametrize("space", NON_PQ)
+def test_matches_jax(space, lattice):
+    check_matches_jax(space, lattice)
+
+
+@pytest.mark.parametrize("space", NON_PQ[1:])
+def test_matches_jax_random(space):
+    check_matches_jax_random(space)
 
 
 @pytest.mark.parametrize("space", SPACES[1:])

@@ -14,7 +14,6 @@ from aejpeg_tpu.io.image import ImageData as JImage
 from aejpeg_tpu.parallel.batch import \
     device_encode_uniform as j_device_encode_uniform
 import aejpeg_tpu_torch as at
-from aejpeg_tpu_torch.codec import quadtree as qt
 from aejpeg_tpu_torch.io.container import ContainerReader
 from aejpeg_tpu_torch.parallel import device_encode_uniform
 
@@ -126,7 +125,7 @@ def test_decompress_matches_decode_batch(arrays, space, q, blocks):
                               at.decode_batch(blobs, device="cpu")):
         out = codec.decompress(blob)
         assert out.data.shape == arr.shape and out.extension == ".png"
-        np.testing.assert_allclose(out.data, dec.data, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(out.data, dec.data)
         assert _psnr(arr, out.data) > 25
     assert codec.config.color_space == space
 
@@ -161,29 +160,6 @@ def test_device_encode_uniform_matches_jax(arrays):
         assert (a.numpy() == np.asarray(b)).mean() >= 0.999
 
 
-def test_edge_fn_is_honoured(arrays):
-    """An injected edge map decides the quadtree: no edges leave the
-    largest blocks, edges everywhere split down to the smallest."""
-    calls = []
-
-    def edges(value):
-        def fn(layer):
-            calls.append(tuple(layer.shape))
-            return np.full(tuple(layer.shape), value, np.float32)
-        return fn
-
-    cfg = at.CodecConfig("YCoCg", (20, 80), (4, 32))
-    img = at.ImageData.from_array(arrays[0])
-    for value, size in ((0.0, 32), (1.0, 4)):
-        calls.clear()
-        blob = at.Codec(cfg, edge_fn=edges(value), device="cpu").compress(img)
-        assert calls == [(96, 128), (48, 64), (48, 64)]
-        for (lh, lw), layer in zip(calls, ContainerReader(blob).read_layers()):
-            want = qt.build_plan(np.full((lh, lw), value, np.float32), 32, 4)
-            assert layer.states_bytes == qt.pack_states(want.states)[0]
-            assert set(want.leaf_sizes.tolist()) == {size}
-
-
 def test_update_settings(arrays):
     codec = at.Codec(device="cpu")
     cfg = at.CodecConfig("YCbCr", (50, 50), (8, 8))
@@ -193,3 +169,36 @@ def test_update_settings(arrays):
                                                   extension=".jpg"))
     assert ContainerReader(blob).metadata.color_space == "YCbCr"
     assert codec.extension == ".jpg"
+
+
+@pytest.fixture(scope="module")
+def arrays_512x768():
+    return _arrays(512, 768, 1, seed=9)
+
+
+@pytest.mark.parametrize("space,q,blocks", CONFIGS, ids=IDS)
+def test_bytes_match_jax_codec_at_sparse_level(arrays_512x768, space, q,
+                                               blocks):
+    """Entropy level -1 at 512x768 (luma's stream spans two 1 MiB chunks):
+    the Codec writes the JAX Codec's bytes, through the byte-level sparse
+    coder (encode_batch writes the JAX encode_batch's)."""
+    arr = arrays_512x768[0]
+    theirs = JCodec(JConfig(space, q, blocks, entropy_level=-1)).compress(
+        JImage.from_array(arr, extension=".png"))
+    ours = at.Codec(at.CodecConfig(space, q, blocks, entropy_level=-1),
+                    device="cpu").compress(
+        at.ImageData.from_array(arr, extension=".png"))
+    assert ours == theirs
+
+
+def test_failed_compress_leaves_the_codec_reusable(arrays):
+    """A compress that raises (a 0-pixel image) leaves nothing behind: the
+    same Codec's next compress writes a fresh Codec's bytes."""
+    cfg = at.CodecConfig("YCoCg", (20, 80), (4, 32))
+    codec = at.Codec(cfg, device="cpu")
+    with pytest.raises(ValueError):
+        codec.compress(at.ImageData.from_array(
+            np.zeros((0, 0, 3), np.float32)))
+    img = at.ImageData.from_array(arrays[0], extension=".png")
+    assert codec.compress(img) == at.Codec(cfg, device="cpu").compress(img)
+    assert codec.extension == ".png"

@@ -109,8 +109,7 @@ def test_sweep_matches_jax(files, tmp_path, space):
                 (key, m, row[m], theirs[key][m])
 
 
-@pytest.mark.parametrize("space", ["YCoCg", "ICtCp"])
-def test_sweep_matches_decode_path(files, tmp_path, space):
+def check_sweep_matches_decode_path(files, tmp_path, space):
     """Every ratio and metric string equals the one the port's own
     encode_batch -> decode_batch -> EvaluationMetrics path prints."""
     paths, weights = files
@@ -132,6 +131,13 @@ def test_sweep_matches_decode_path(files, tmp_path, space):
                 assert row["ssim"] == f"{ev.ssim():.4f}"
                 assert row["ms_ssim"] == f"{ev.ms_ssim():.4f}"
                 assert abs(float(row["lpips"]) - ev.lpips()) <= 1e-4
+
+
+# ICtCp's case runs in test_torch_sweep_ictcp.py: it takes about as long
+# as every other case of this file together
+@pytest.mark.parametrize("space", ["YCoCg"])
+def test_sweep_matches_decode_path(files, tmp_path, space):
+    check_sweep_matches_decode_path(files, tmp_path, space)
 
 
 def test_resume_rerun_is_noop(files, tmp_path):

@@ -223,34 +223,41 @@ def test_batch_events_keep_what_the_benchmark_reads(traced):
 
 
 def test_codec_emits_its_spans(traced):
+    """The Codec's two roots hold encode_batch's and decode_batch's stage
+    spans, in order, with their syncs."""
     codec = at.Codec(at.CodecConfig("YCoCg", (40, 80), (4, 16)),
                      device="cpu")
     codec.decompress(codec.compress(_images(1)[0]))
-    spans = _spans(_records(traced))
+    recs = _records(traced)
+    assert {r["event"] for r in recs} == {"span"}
+    spans = _spans(recs)
     comp, dec = sorted((s for s in spans.values() if s["parent"] is None),
                        key=lambda s: s["start_ns"])
     assert (comp["name"], dec["name"]) == ("codec.compress",
                                            "codec.decompress")
-    names = [s["name"] for s in sorted(_kids(spans, comp),
-                                       key=lambda s: s["start_ns"])]
-    assert names == ["codec.tables", "codec.color"] + [
-        "codec.edges", "codec.plan", "codec.blocks", "codec.pack"] * 3 \
-        + ["codec.deflate"]
-    names = [s["name"] for s in sorted(_kids(spans, dec),
-                                       key=lambda s: s["start_ns"])]
-    assert names == ["codec.parse", "codec.tables"] + [
-        "codec.parse", "codec.blocks", "codec.upsample"] * 3 + [
-        "codec.color", "sync.pull"]
-    for s in spans.values():
-        if s["name"] == "codec.edges":
-            assert {k["name"] for k in _kids(spans, s)} >= {
-                "sync.pull", "sync.hysteresis"}
-            assert s["counts"]["hysteresis_checks"] >= 1
-        if s["name"] == "codec.blocks":
-            kids = {k["name"] for k in _kids(spans, s)}
-            assert "sync.upload" in kids
-            assert ("sync.pull" in kids) == (s["root"] == comp["id"])
-    assert _kids(spans, _kids(spans, comp, "codec.color")[0], "sync.upload")
+    for root, prefix, order in ((comp, "encode", ENCODE),
+                                (dec, "decode", DECODE)):
+        kids = sorted(_kids(spans, root), key=lambda s: s["start_ns"])
+        assert [s["name"] for s in kids] == [f"{prefix}.{n}"
+                                             for n in order]
+        assert all(s["root"] == root["id"] for s in spans.values()
+                   if s["start_ns"] >= root["start_ns"]
+                   and s["end_ns"] <= root["end_ns"])
+    stage = {s["name"]: s for s in _kids(spans, comp)}
+    assert {s["name"] for s in _kids(spans, stage["encode.push"])} == {
+        "encode.convert", "sync.upload"}
+    assert {s["name"] for s in _kids(spans, stage["encode.stage_a"])} == {
+        "stage_a.canny", "sync.levels"}
+    for c in _kids(spans, stage["encode.stage_a"], "stage_a.canny"):
+        assert c["counts"]["hysteresis_checks"] == len(
+            _kids(spans, c, "sync.hysteresis")) >= 1
+    assert {s["name"] for s in _kids(spans, stage["encode.assemble"])} == {
+        "assemble.native", "assemble.containers"}
+    stage = {s["name"]: s for s in _kids(spans, dec)}
+    assert _kids(spans, stage["decode.push"], "sync.upload")
+    assert _kids(spans, stage["decode.pull"], "sync.pull")
+    assert not any(s["name"].startswith("codec.") for s in spans.values()
+                   if s["parent"] is not None)
 
 
 def test_span_start_on_the_profilers_clock(traced, tmp_path, monkeypatch):
