@@ -3,7 +3,13 @@
 Counterpart of the JAX package's codec/batch_encode.py, with the same
 dense design:
 
-  stage A (device): u8 -> f32 x/255, color convert, area downsample, the
+  push (host, then device): on a CUDA device, the float32 images are
+      copied into a pinned per-thread buffer (by a pool of one thread a
+      core for a large batch) and uploaded in one non-blocking copy; on the
+      card one kernel rounds them to the unit floats of their uint8 values
+      (kernels.f32_to_unit).  On the CPU and a mesh the host rounds them
+      to uint8 (_host_batch), and stage A takes them to x/255.
+  stage A (device): color convert, area downsample, the
       Canny stack per layer-shape GROUP of planes, pooled has-edge pyramid
       levels (bit-packed) and normalized planes padded to the block grid.
   stage B (device, queued BEFORE the host plans): for every block size s
@@ -23,8 +29,10 @@ stages need the native library (g++ and zlib at first use).
 """
 
 import math
+import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,7 +46,7 @@ from ..io.image import ImageData
 from ..native import entropy as native_entropy
 from ..ops import dct, kernels, resize
 from ..ops.canny import canny
-from ..utils.log import span, stages
+from ..utils.log import count, span, stages
 from . import quadtree as qt
 from .dense import BatchSpec
 from .tables import device_tables, spec_for
@@ -68,22 +76,27 @@ def packed_levels(root: int, band: Tuple[int, int]) -> range:
 
 
 def _stage_a(batch: torch.Tensor, space: str,
-             level_band: Optional[Tuple[int, int]], spec: BatchSpec):
+             level_band: Optional[Tuple[int, int]], spec: BatchSpec,
+             tiny: Optional[bool] = None):
     """(B, H, W, 3) uint8 or f32 -> (per-group normalized plane stacks,
-    packed levels).
+    packed levels).  tiny None: a uint8 batch is taken to x/255 first, a
+    float32 one as it is; tiny given: `batch` is float32 already, the unit
+    floats of uint8 pixels where tiny is False (f32_to_unit's), and tiny
+    says whether values under 2**-8 other than 0 may occur.
 
     Group planes are (B * n_l, ph, pw) float32, plane p = bi * n_l + j with
     j the layer's position within its group; the pad region is zero.
     level_band = (k_lo, k_hi): pooled has-edge masks for node sizes 2**k
     up to each layer's root (packed_levels), BIT-PACKED (one uint8 row per
     image, MSB first); None (uniform grids) skips the Canny stack."""
-    u8 = batch.dtype == torch.uint8
-    if u8:
-        batch = kernels.u8_to_unit(batch)                # exact x/255
+    if tiny is None:
+        tiny = batch.dtype != torch.uint8
+        if not tiny:
+            batch = kernels.u8_to_unit(batch)            # exact x/255
     mids, scales = color.normalization_constants(space)
     # k/255 pixels are 0 or above 2**-8: the first contraction's flushes
     # can be skipped
-    converted = color.convert("sRGB", space, batch, tiny=not u8)
+    converted = color.convert("sRGB", space, batch, tiny=tiny)
     b = batch.shape[0]
     dev = batch.device
 
@@ -352,6 +365,112 @@ def _host_batch(images: Sequence[ImageData]) -> np.ndarray:
     return u8 if exact else np.stack([im.data for im in images])
 
 
+# Batches of at least this many bytes of float32 pixels are staged by the
+# copy pool; a smaller one (the preview's one 512x768 image, 4.7 MB) on the
+# calling thread, where handing it to the pool would cost more than it saves.
+POOL_MIN_BYTES = 8 << 20
+
+_POOL: Optional[ThreadPoolExecutor] = None
+_POOL_LOCK = threading.Lock()
+
+
+def _forget_pool() -> None:
+    """In a forked child: the parent's pool threads do not exist there."""
+    global _POOL, _POOL_LOCK
+    _POOL, _POOL_LOCK = None, threading.Lock()
+
+
+os.register_at_fork(after_in_child=_forget_pool)
+
+
+def copy_pool() -> ThreadPoolExecutor:
+    """The staging copies' pool: one thread a core the process may use,
+    made at first use and shared by every caller (encode_stream's workers
+    too)."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = ThreadPoolExecutor(len(os.sched_getaffinity(0)),
+                                       thread_name_prefix="aej-stage")
+        return _POOL
+
+
+def stage_images(images: Sequence[ImageData], out: np.ndarray,
+                 threads: int = 1) -> None:
+    """Copy each image's float32 data into out[i] of the (B, H, W, 3) `out`,
+    as `threads` runs of consecutive rows of the batch on copy_pool()
+    (threads 1: on the calling thread).  numpy's copy releases the GIL."""
+    h = out.shape[1]
+    rows = out.shape[0] * h
+
+    def copy(lo: int, hi: int) -> None:
+        while lo < hi:
+            i, y = divmod(lo, h)
+            n = min(hi - lo, h - y)
+            np.copyto(out[i, y:y + n], images[i].data[y:y + n])
+            lo += n
+
+    if threads <= 1:
+        copy(0, rows)
+        return
+    step = -(-rows // threads)
+    pool = copy_pool()
+    futs = [pool.submit(copy, lo, min(lo + step, rows))
+            for lo in range(0, rows, step)]
+    wait(futs)            # every run ends before the buffer is used
+    for f in futs:
+        f.result()
+
+
+def _convert_host(images: Sequence[ImageData]) -> np.ndarray:
+    """_host_batch under the push's span (the CPU device and the mesh)."""
+    with span("encode.convert", cpu=True, route="host", threads=1):
+        return _host_batch(images)
+
+
+def _pinned_route(dev: torch.device, images: Sequence[ImageData]) -> bool:
+    """True to stage float32 images in pinned memory and round them on the
+    card (_push_pinned); else _host_batch rounds them on the host."""
+    return dev.type == "cuda" and all(im.data.dtype == np.float32
+                                      for im in images)
+
+
+def _push_pinned(images: Sequence[ImageData], dev: torch.device, b: int,
+                 h: int, w: int) -> torch.Tensor:
+    """The images' float32 pixels, staged into this thread's pinned buffer
+    (by copy_pool() for a batch of POOL_MIN_BYTES or more) and uploaded in
+    one non-blocking copy: (b, h, w, 3) float32 on `dev`."""
+    nbytes = b * h * w * 3 * 4
+    threads = (len(os.sched_getaffinity(0)) if nbytes >= POOL_MIN_BYTES
+               else 1)
+    with span("encode.convert", cpu=True, route="pinned", threads=threads):
+        count("push_exact_checks",
+              0 if all(im.u8_exact for im in images) else 1)
+        staging = pinned_buffer("enc_push", nbytes, torch.float32)
+        staging = staging.reshape(b, h, w, 3)
+        stage_images(images, staging.numpy(), threads)
+    with span("encode.upload"):
+        # the buffer is refilled only by this thread's next batch, after
+        # this batch's sync.levels pull, which the stream orders after
+        # this copy
+        return staging.to(dev, non_blocking=True)
+
+
+def _unit_batch(batch: torch.Tensor, images: Sequence[ImageData]):
+    """The uploaded float32 batch -> (stage A's input, tiny): its unit
+    floats (f32_to_unit, in place) when every image is exactly uint8 / 255,
+    as the loader marks it or the kernel's check finds it, else the batch
+    as it is (tiny True): _host_batch's choice between uint8 and float32."""
+    if all(im.u8_exact for im in images):
+        return kernels.f32_to_unit(batch, out=batch)[0], False
+    unit, flags = kernels.f32_to_unit(batch, check=True)
+    with span("sync.exact"):
+        inexact = flags.cpu().numpy()
+    if any(inexact[i] for i, im in enumerate(images) if not im.u8_exact):
+        return batch, True
+    return unit, False
+
+
 def level_band(cfg: CodecConfig) -> Optional[Tuple[int, int]]:
     """(k_lo, k_hi): the pooled level band stage A packs (node sizes
     2 * min .. max); None for a uniform grid."""
@@ -366,14 +485,21 @@ def _device_shard(host: np.ndarray, cfg: CodecConfig, shape, b: int,
     returns (levels (b, n) uint8 on the host, the flat stage-B tables on
     `dev`, possibly still being computed).  mark(name, sync) records the
     'push' and 'stage_a' times."""
-    spec = spec_for(cfg, shape)
-    tables = device_tables(cfg, shape, b, dev)
     with span("sync.upload"):
         batch = torch.from_numpy(host).to(dev)
     if mark is not None:
         mark("push", sync=True)
+    return _device_stages(batch, cfg, shape, b, mark)
+
+
+def _device_stages(batch: torch.Tensor, cfg: CodecConfig, shape, b: int,
+                   mark=None, tiny: Optional[bool] = None):
+    """_device_shard after its upload: stage A on `batch` (as _stage_a
+    takes it, with `tiny`), the packed levels' pull and stage B."""
+    spec = spec_for(cfg, shape)
+    tables = device_tables(cfg, shape, b, batch.device)
     group_planes, packed_bits = _stage_a(batch, cfg.color_space,
-                                         level_band(cfg), spec)
+                                         level_band(cfg), spec, tiny)
     with span("sync.levels"):
         levels = packed_bits.cpu().numpy()
     if mark is not None:
@@ -407,7 +533,8 @@ def encode_batch(images: Sequence[ImageData], config: CodecConfig,
 
     device: None means CUDA (raises when CUDA is absent); pass "cpu" for
     the plain PyTorch path.  `timings` collects per-stage wall seconds:
-    'push' (host->device upload), 'stage_a' (device stage A up to the
+    'push' (the images' staging on the host and their upload), 'stage_a'
+    (on the card the rounding kernel, then device stage A up to the
     packed levels on the host), 'plans' (host quadtree planning, overlapped
     with device stage B), 'device' (residual stage B wait), 'pull' (tables
     to the host), 'assemble' (C++ stream assembly + deflate).  Traced
@@ -465,17 +592,22 @@ def _encode(images: Sequence[ImageData], config: CodecConfig,
     with spans:
         layer_shapes = cfg.layer_shapes((h, w))
         spec = spec_for(cfg, (h, w))
-        with span("encode.convert", cpu=True):
-            host_batch = _host_batch(images)
-        if mesh is None:
-            devices.append(dev)
-            levels, flat = _device_shard(host_batch, cfg, (h, w), b, dev,
-                                         mark)
-            levels, flats = [levels], [flat]
-        else:
-            levels, flats = device_fn(host_batch)
+        if mesh is not None:
+            levels, flats = device_fn(_convert_host(images))
             devices.extend({t.device for t in flats})
             mark("stage_a")
+        else:
+            devices.append(dev)
+            if _pinned_route(dev, images):
+                batch = _push_pinned(images, dev, b, h, w)
+                mark("push", sync=True)
+                batch, tiny = _unit_batch(batch, images)
+                levels, flat = _device_stages(batch, cfg, (h, w), b, mark,
+                                              tiny)
+            else:
+                levels, flat = _device_shard(_convert_host(images), cfg,
+                                             (h, w), b, dev, mark)
+            levels, flats = [levels], [flat]
         # stage B has no plan dependence: it runs while the host plans
         plans = _build_plans(cfg, layer_shapes, np.concatenate(levels),
                              level_band(cfg), b)

@@ -102,3 +102,93 @@ extern "C" int aej_u8_to_unit(const void* in, void* out, const void* table,
       static_cast<const float*>(table), n, head, n16);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// Rounded float32 -> the same unit floats, flat (aej_f32_to_unit).
+//
+// encode_batch's CUDA route uploads the images' float32 pixels and rounds
+// them here, in the pass that u8_to_unit makes of uint8 ones: k = rint(x *
+// 255) (one IEEE product, rounded half to even: numpy's
+// np.rint(np.multiply(x, np.float32(255)))), clamped to [0, 255] with NaN
+// at 0, then the same table[k].  That is one pass where the host's rounding
+// to uint8, a uint8 upload and u8_to_unit's gather took three.  `out` may
+// be `in` (in place: each element is read and then written by one thread).
+// With `flags` (one zeroed int32 a run of `per` elements: an image), the
+// kernel also sets flags[i / per] to 1 where table[k] != x, numpy's
+// array_equal of the round trip: that image is not exactly uint8 / 255.
+// Bound on the H100: bytes, 4 read and 4 written an element.  Both pointers
+// 16-byte aligned: float4 loads and stores, a grid-stride loop, the tail
+// of n % 4 elements scalar; else every element scalar.
+
+namespace {
+
+__device__ __forceinline__ float round_unit(const float* tab, float x,
+                                            bool& bad) {
+  const float r = rintf(__fmul_rn(x, 255.0f));
+  const int k = r >= 255.0f ? 255 : (r > 0.0f ? static_cast<int>(r) : 0);
+  const float u = tab[k];
+  bad = u != x;
+  return u;
+}
+
+__device__ __forceinline__ void flag(int* flags, long long i, long long per) {
+  int* f = flags + i / per;
+  if (*f == 0) *f = 1;  // read first: not a store from every element
+}
+
+__global__ void __launch_bounds__(kThreads)
+f32_to_unit_kernel(const float* in, float* out,
+                   const float* __restrict__ table, int* flags, long long n,
+                   long long per, long long n4) {
+  __shared__ float tab[256];
+  tab[threadIdx.x] = table[threadIdx.x];  // kThreads == 256
+  __syncthreads();
+
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const float4* in4 = reinterpret_cast<const float4*>(in);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  for (long long c = tid; c < n4; c += stride) {
+    const float4 x = in4[c];
+    bool b0, b1, b2, b3;
+    const float4 u = make_float4(round_unit(tab, x.x, b0),
+                                 round_unit(tab, x.y, b1),
+                                 round_unit(tab, x.z, b2),
+                                 round_unit(tab, x.w, b3));
+    out4[c] = u;
+    if (flags != nullptr && (b0 | b1 | b2 | b3)) {
+      if (b0) flag(flags, 4 * c, per);
+      if (b1) flag(flags, 4 * c + 1, per);
+      if (b2) flag(flags, 4 * c + 2, per);
+      if (b3) flag(flags, 4 * c + 3, per);
+    }
+  }
+  for (long long i = 4 * n4 + tid; i < n; i += stride) {
+    bool bad;
+    out[i] = round_unit(tab, in[i], bad);
+    if (flags != nullptr && bad) flag(flags, i, per);
+  }
+}
+
+}  // namespace
+
+extern "C" int aej_f32_to_unit(const void* in, void* out, const void* table,
+                               void* flags, long long n, long long per,
+                               void* stream) {
+  if (n <= 0) return 0;
+  if (per <= 0) return -1;
+  const uintptr_t ia = reinterpret_cast<uintptr_t>(in);
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
+  const long long n4 = (ia % 16 == 0 && oa % 16 == 0) ? n / 4 : 0;
+  const long long units = n4 > (n - 4 * n4) ? n4 : (n - 4 * n4);
+  long long blocks = (units + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1) blocks = 1;
+  f32_to_unit_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<float*>(out),
+      static_cast<const float*>(table), static_cast<int*>(flags), n, per,
+      n4);
+  return static_cast<int>(cudaGetLastError());
+}

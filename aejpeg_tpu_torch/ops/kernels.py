@@ -12,6 +12,13 @@ Counterpart of the JAX package's ops/pallas_kernels.py:
   u8_to_unit          <- u8_to_unit_lut (_u8_lut_2d, _u8_lut_kernel)
                          csrc/u8_to_unit.cu
 
+and a second entry point of that source, which has no Pallas counterpart
+(the host's rounding of the float pixels to uint8 in the reference's
+encode_batch, then the same table):
+
+  f32_to_unit         <- codec/batch_encode.py _host_batch + u8_to_unit
+                         csrc/u8_to_unit.cu
+
 the port's own bilateral filter and hysteresis, which have no Pallas
 counterpart (the reference's 13-tap loop, ops/canny.py bilateral_u8, and
 its jnp hysteresis under a while_loop, ops/canny.py _hysteresis):
@@ -77,6 +84,7 @@ LAUNCHES = {"histogram256": LaunchCounter(),
             "clahe_apply_gather": LaunchCounter(),
             "clahe_lut_apply": LaunchCounter(),
             "u8_to_unit": LaunchCounter(),
+            "f32_to_unit": LaunchCounter(),
             "banded_resize": LaunchCounter(),
             "dct2d": LaunchCounter(),
             "bilateral": LaunchCounter(),
@@ -91,6 +99,7 @@ _SIGNATURES = {
                          [_VP] * 9 + [_I] * 5 + [_VP]),
     "aej_clahe_lut_apply": ("clahe_apply.cu", [_VP] * 6 + [_I] * 5 + [_VP]),
     "aej_u8_to_unit": ("u8_to_unit.cu", [_VP, _VP, _VP, _LL, _VP]),
+    "aej_f32_to_unit": ("u8_to_unit.cu", [_VP] * 4 + [_LL, _LL, _VP]),
     "aej_banded_resize": ("banded_resize.cu", [_VP] * 8 + [_I] * 11 + [_VP]),
     "aej_dct2d": ("banded_resize.cu",
                   [_VP] * 3 + [_I] * 6 + [_VP, _VP, _I, _I, _VP, _I]
@@ -343,6 +352,50 @@ def u8_to_unit(x: torch.Tensor) -> torch.Tensor:
                 _unit_table(x.device).data_ptr(), x.numel())
         LAUNCHES["u8_to_unit"].add()
     return out
+
+
+def f32_to_unit_plain(x: torch.Tensor, check: bool = False):
+    """Plain version of f32_to_unit (a new output; x is not written)."""
+    k = torch.round(x * 255)                  # half to even, as np.rint
+    k = torch.where(k >= 255, 255.0, torch.where(k > 0, k, 0.0))  # NaN: 0
+    unit = _unit_table(x.device)[k.long()]
+    flags = None
+    if check:
+        flags = (unit != x).reshape(x.shape[0], -1).any(dim=1).to(
+            torch.int32)
+    return unit, flags
+
+
+def f32_to_unit(x: torch.Tensor, out=None, check: bool = False):
+    """(B, ...) contiguous float32 -> (unit, flags): unit = table[k], with
+    k = rint(x * 255) clamped to [0, 255] and NaN at 0 (numpy's rounding
+    of x to uint8 in _host_batch) and u8_to_unit's table, so an image of
+    k/255 values comes out bit-equal to u8_to_unit of its uint8 pixels.
+    `out` (x's shape and device; may be x itself) takes the result, else a
+    new tensor does.  With `check`, flags is (B,) int32, 1 where image b
+    holds a value other than its unit float (numpy's array_equal of
+    _host_batch's round trip: not exactly uint8 / 255), else None."""
+    if x.dim() < 1:
+        raise ValueError("f32_to_unit: expected a (B, ...) batch")
+    _check("f32_to_unit", x, torch.float32, x.shape, x.device)
+    if out is not None:
+        _check("f32_to_unit", out, torch.float32, x.shape, x.device)
+    if not _route("f32_to_unit", x.device):
+        unit, flags = f32_to_unit_plain(x, check)
+        if out is None:
+            return unit, flags
+        return out.copy_(unit), flags
+    if out is None:
+        out = torch.empty_like(x)
+    flags = (torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+             if check else None)
+    if x.numel():
+        _launch("aej_f32_to_unit", x.device, x.data_ptr(), out.data_ptr(),
+                _unit_table(x.device).data_ptr(),
+                None if flags is None else flags.data_ptr(), x.numel(),
+                x.numel() // x.shape[0])
+        LAUNCHES["f32_to_unit"].add()
+    return out, flags
 
 
 # ------------------------------------------------------- bilateral filter

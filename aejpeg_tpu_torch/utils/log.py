@@ -44,8 +44,17 @@ The span tree of the streams and the per-image Codec:
 
   encode_stream (root; images, batches, mpix)
     encode.batch (parent: the root, on a worker thread; batch, images)
-      encode.push          encode.convert (cpu_ns), sync.upload
-      encode.stage_a       stage_a.canny (a layer group; attrs planes, h,
+      encode.push          encode.convert (cpu_ns; attrs route and
+                           threads: on the card "pinned", the images'
+                           copy into pinned memory by `threads` runs, and
+                           the count push_exact_checks, 1 where an image
+                           is not marked u8-exact; on the CPU and a mesh
+                           "host", _host_batch's rounding, 1 thread),
+                           then encode.upload on the card (the upload's
+                           enqueue: it does not wait) or sync.upload
+      encode.stage_a       sync.exact (on the card, where an image is not
+                           marked: the kernel's not-exact words pulled)
+                           stage_a.canny (a layer group; attrs planes, h,
                            w and the hysteresis's route: resident or
                            banded on the card, plain on the CPU; counts
                            hysteresis_checks (host checks: 0 where every

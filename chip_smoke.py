@@ -9,7 +9,10 @@ Phases, each fatal on failure:
      build times;
   2. kernels against their plain PyTorch versions on the card, at the
      shapes the main path gives them (u8_to_unit also at every u8 value,
-     odd sizes and offset pointers; the CLAHE gather also at shapes with
+     odd sizes and offset pointers; f32_to_unit also at CLIC's 16 x
+     2048x1365, with its flags on k/255 images holding 0.5, 1e-9, a
+     subnormal, NaN, infinities, values out of [0, 1] and values whose
+     product with 255 is a half, in place and at an offset pointer; the CLAHE gather also at shapes with
      partial column strips and row bands), with times (CUDA events around
      25 back-to-back calls; and the kernel's own device time per call,
      from torch.profiler over the same loop, which tells a launch-bound
@@ -28,7 +31,11 @@ Phases, each fatal on failure:
      tables (the forward DCT with its quantize epilogue) and stage D's
      decoded pixels (the inverse DCT with its canvas-sum and denormalize
      epilogue, the upsample) bitwise equal, containers byte-identical; and
-     batch-vs-single container identity on the card;
+     batch-vs-single container identity on the card; encode_batch's card
+     route (float32 upload, f32_to_unit) against the host's route on the
+     card (uint8 upload, u8_to_unit), containers byte-identical on 42 x
+     512x768 and 16 x 1365x2048, marked u8-exact and not, with each
+     route's push time;
   5. encode and decode Mpix/s of the 42-image batch (median of 5 warm
      batches) with each stage's time;
   6. a torch.profiler trace of one warm batch each way: device-busy share
@@ -344,8 +351,9 @@ def kernel_cases(dev):
     from aejpeg_tpu_torch.ops import canny, kernels as K
     g = torch.Generator(device="cpu").manual_seed(0)
     cases = {"histogram256": [], "clahe_apply_gather": [],
-             "clahe_lut_apply": [], "u8_to_unit": [], "banded_resize": [],
-             "dct2d": [], "bilateral": [], "hysteresis": []}
+             "clahe_lut_apply": [], "u8_to_unit": [], "f32_to_unit": [],
+             "banded_resize": [], "dct2d": [], "bilateral": [],
+             "hysteresis": []}
 
     def ints(*shape):
         return torch.randint(0, 256, shape, generator=g,
@@ -437,6 +445,64 @@ def kernel_cases(dev):
         cases["u8_to_unit"].append(
             (label, (x,), K.u8_to_unit_plain, K.u8_to_unit, lib,
              x.numel() * 5, x.numel(), on_path))
+
+    # f32_to_unit: the float32 batches encode_batch's card route uploads
+    # (CLIC's 16 x 2048x1365 and phase 3's 42, timed; out of place, as the
+    # in-place call moves the same bytes); k/255 images with a value that
+    # is none (0.5, 1e-9, a subnormal, NaN, infinities, -0.25, 1.5, products
+    # at a half) in the last, at 37x53, 1x1 and 512x768, 1 and 3 images,
+    # with the flags;
+    # the in-place call; a start 4 bytes past a 16-byte boundary (scalar)
+    def units(*shape):
+        return K.u8_to_unit_plain(bytes_(*shape))
+
+    def unit(x):
+        return K.f32_to_unit(x)[0]
+
+    def unit_plain(x):
+        return K.f32_to_unit_plain(x)[0]
+
+    def flagged(fn):
+        def run(x):
+            u, flags = fn(x, check=True)
+            return torch.cat((u.reshape(-1).view(torch.int32), flags))
+        return run
+
+    def in_place(x):
+        y = x.clone()
+        return K.f32_to_unit(y, out=y)[0]
+
+    specials = {"k/255": [], "0.5": [0.5], "1e-9": [1e-9],
+                "subnormal": [1e-40], "NaN": [float("nan")],
+                "infinities": [float("inf"), -float("inf")],
+                "out of [0, 1]": [-0.25, 1.5],
+                # x * 255 = 0.5 and 254.5 exactly: half to even
+                "halves": [float(np.float32(0.5 / 255)),
+                           float(np.float32(254.5 / 255))]}
+    f32_cases = [(f"({n}, {h}, {w}, 3)", units(n, h, w, 3), unit,
+                  unit_plain, True) for n, h, w in ((16, 2048, 1365),
+                                                    (BATCH, H, W))]
+    for n, h, w in ((1, 37, 53), (3, 37, 53), (1, 1, 1), (3, 1, 1),
+                    (1, H, W), (3, H, W)):
+        for what, vals in specials.items():
+            x = units(n, h, w, 3)
+            last = x[-1].view(-1)
+            for j, v in enumerate(vals):
+                last[j * (last.numel() - 1)] = v
+            f32_cases.append((f"({n}, {h}, {w}, 3) {what}, flags", x,
+                              flagged(K.f32_to_unit),
+                              flagged(K.f32_to_unit_plain), False))
+    x = units(3, 37, 53, 3)
+    x[1].view(-1)[7] = 0.5
+    f32_cases.append(("(3, 37, 53, 3) 0.5 in the middle one, in place", x,
+                      in_place, unit_plain, False))
+    f32_cases.append(("offset 4, (1000003,)",
+                      units(1000007)[1:1000004].reshape(1, -1), unit,
+                      unit_plain, False))
+    for label, x, kern, plain, on_path in f32_cases:
+        cases["f32_to_unit"].append((label, (x,), plain, kern, None,
+                                     x.numel() * 8, 2 * x.numel(),
+                                     on_path))
 
     # decode's chroma upsample as phase 3 sends it (one chroma channel of
     # a batch a call, rows then columns): a 512x768 batch and the two
@@ -1117,7 +1183,10 @@ def main_path(cfg, big, small):
                                  "non-finite values")
     if worst <= 25.0:
         raise AssertionError(f"PSNR {worst:.3f} dB <= 25 dB")
-    _require_launched("main path", launches, launches)
+    # encode_batch on the card uploads float32 (f32_to_unit); u8_to_unit
+    # serves the mesh and the sweep
+    _require_launched("main path", launches,
+                      [k for k in launches if k != "u8_to_unit"])
     return launches
 
 
@@ -1195,6 +1264,44 @@ def card_vs_cpu(cfg, imgs, singles=True):
     if singles != gpu:
         raise AssertionError("batch-vs-single containers differ on cuda")
     log("  batch-vs-single containers byte-identical on cuda")
+
+
+def push_routes(cfg, big):
+    """Phase 4: encode_batch's card route (the float32 images staged in
+    pinned memory, one upload, f32_to_unit) against the host's route on
+    the card (_host_batch's uint8, u8_to_unit): containers byte-identical
+    on phase 3's 42 images and on 16 of CLIC's 1365x2048, with the images
+    marked u8-exact and unmarked (the kernel's check); each route's push
+    ms on the second of two calls."""
+    from unittest import mock
+    import aejpeg_tpu_torch as at
+    from aejpeg_tpu_torch.codec import batch_encode as be
+    clic = synth_images(16, 1365, 2048, seed=5)
+    ccfg = at.CodecConfig("YCbCr", QUALITY, BLOCKS, entropy_level=-1)
+    for label, imgs, c in ((f"{len(big)} x {H}x{W}", big, cfg),
+                           ("16 x 1365x2048", clic, ccfg)):
+        for marked in (True, None):
+            for im in imgs:
+                im.u8_exact = marked
+            push = {}
+            for route in ("card", "host"):
+                with mock.patch.object(
+                        be, "_pinned_route",
+                        be._pinned_route if route == "card"
+                        else lambda dev, images: False):
+                    for _ in range(2):
+                        t = {}
+                        blobs = at.encode_batch(imgs, c, timings=t)
+                push[route] = (blobs, t["push"] * 1e3)
+            if push["card"][0] != push["host"][0]:
+                raise AssertionError(f"{label}, marked {marked}: the card "
+                                     "route's containers differ from the "
+                                     "host route's")
+            log(f"  {label}, marked {marked}: containers byte-identical, "
+                f"card route and host route; push {push['card'][1]:.3f} "
+                f"ms against {push['host'][1]:.3f} ms")
+        for im in imgs:
+            im.u8_exact = True
 
 
 def times(cfg, big):
@@ -1276,7 +1383,8 @@ def color_spaces(big, card):
         dec, launches = _launches_since_reset(
             lambda: at.decode_batch(at.encode_batch(imgs, cfg)))
         _require_launched(space, launches,
-                          ("u8_to_unit", "histogram256", "clahe_apply_gather"))
+                          ("f32_to_unit", "histogram256",
+                           "clahe_apply_gather"))
         for im, d in zip(imgs, dec):
             if d.data.shape != im.data.shape or not np.isfinite(d.data).all():
                 raise AssertionError(f"{space}: decoded image has the wrong "
@@ -1399,9 +1507,9 @@ def codec_phase(big, card):
     imgs = big[:CODEC_IMAGES]
     for cfg, needs in (
             (at.CodecConfig("YCoCg", QUALITY, BLOCKS, entropy_level=-1),
-             ("histogram256", "clahe_apply_gather")),
+             ("f32_to_unit", "histogram256", "clahe_apply_gather")),
             (at.CodecConfig("YCbCr", (50, 50), (8, 8), entropy_level=-1),
-             ())):
+             ("f32_to_unit",))):
         codec = at.Codec(cfg)
         codec.decompress(codec.compress(imgs[0]))        # warm-up
 
@@ -1553,7 +1661,8 @@ def sweep_phase(big, small, card):
         if len(rows) != len(paths) * n_combos:
             raise AssertionError(f"sweep wrote {len(rows)} rows, want "
                                  f"{len(paths) * n_combos}")
-        _require_launched("sweep", launches, launches)
+        _require_launched("sweep", launches,
+                          [k for k in launches if k != "f32_to_unit"])
         mpix = sum(im.original_shape[0] * im.original_shape[1]
                    for im in src) / 1e6 * n_combos
         log(f"  sweep: {len(rows)} rows ({len(paths)} images x {n_combos} "
@@ -1653,7 +1762,7 @@ def cli_phase(big, card):
         want, launches = _launches_since_reset(lambda: at.encode_stream(
             [at.ImageData.load(p) for p in paths], cfg))
         _require_launched("encode_stream of the CLI's images", launches,
-                          ("u8_to_unit", "histogram256",
+                          ("f32_to_unit", "histogram256",
                            "clahe_apply_gather"))
         ajpgs = [os.path.join(out, f"cli{i:02d}.ajpg")
                  for i in range(len(paths))]
@@ -1699,7 +1808,7 @@ def harness_phase(big, card):
         (path,) = _write_pngs(big[:1], tmp, "speed")
         rows, launches = _launches_since_reset(lambda: run_speed_table(
             path, iters=3, block_sizes=[4, 8, 16, 32]))
-        _require_launched("speed table", launches, ("u8_to_unit",))
+        _require_launched("speed table", launches, ("f32_to_unit",))
         log(f"  speed table, 1 x {H}x{W}, 3 iters ({card}; launches "
             f"{launches}):")
         for line in format_table(rows).splitlines():
@@ -1786,8 +1895,9 @@ def mesh_phase(cfg, big, small, card):
         if diff:
             raise AssertionError(f"{label}: decode differs in {diff} values "
                                  f"(max abs {err})")
-        if first is None:
-            _require_launched(label, launches, launches)
+        if first is None:           # the mesh keeps the host's rounding
+            _require_launched(label, launches,
+                              [k for k in launches if k != "f32_to_unit"])
             first = launches
         for what, call in (
                 ("encode_batch", lambda: at.encode_batch(imgs[:-1], cfg,
@@ -1987,7 +2097,7 @@ def gui_phase(big, card):
         if errors:
             raise AssertionError(f"compress job: {errors}")
         _require_launched("compress job", launches,
-                          ("u8_to_unit", "histogram256",
+                          ("f32_to_unit", "histogram256",
                            "clahe_apply_gather"))
         want = at.encode_batch([at.ImageData.load(p) for p in paths], cfg)
         ajpgs = [os.path.splitext(p)[0] + ".ajpg" for p in paths]
@@ -2078,6 +2188,10 @@ def small_kernel_cases(dev):
                             dtype=torch.uint8).to(dev)
         out.append(("u8_to_unit", f"(2, {h}, {w}, 3)", (rgb,),
                     K.u8_to_unit_plain, K.u8_to_unit))
+        out.append(("f32_to_unit", f"(2, {h}, {w}, 3)",
+                    (K.u8_to_unit_plain(rgb),),
+                    lambda x: K.f32_to_unit_plain(x)[0],
+                    lambda x: K.f32_to_unit(x)[0]))
         weak = torch.rand((p, h, w), generator=g).to(dev) < 0.5
         strong = weak & (torch.rand((p, h, w), generator=g).to(dev) < 0.05)
         out.append(("hysteresis", label, (strong, weak),
@@ -2181,7 +2295,8 @@ def small_layers_phase(card):
         return out
     encoded, launches = _launches_since_reset(run)
     log(f"  launches in the encode/decode run: {launches}")
-    _require_launched("small layers", launches, launches)
+    _require_launched("small layers", launches,
+                      [k for k in launches if k != "u8_to_unit"])
     for (space, blocks, shape, imgs), (e9, e1, dec) in zip(cases, encoded):
         cpu9 = at.Codec(at.CodecConfig(space, QUALITY, blocks),
                         device="cpu")
@@ -2312,7 +2427,7 @@ def dense_resize_phase(card):
     (outs, enc, dec), launches = _launches_since_reset(run)
     log(f"  card run {time.perf_counter() - t0:.3f} s; launches {launches}")
     _require_launched("dense resizes", launches, ("banded_resize",
-                                                  "u8_to_unit"))
+                                                  "f32_to_unit"))
     for x, got, (src, dst, kind) in zip(planes, outs, DENSE_RESIZES):
         want = resize.resize2d(x, dst, kind)
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
@@ -2348,6 +2463,7 @@ KERNEL_NAMES = {"histogram256": "hist256_kernel",
                 "clahe_apply_gather": "clahe_gather_kernel",
                 "clahe_lut_apply": "clahe_lut_apply_kernel",
                 "u8_to_unit": "u8_to_unit_kernel",
+                "f32_to_unit": "f32_to_unit_kernel",
                 "banded_resize": "banded_",
                 "dct2d": "dct2d_kernel",
                 "bilateral": "bilateral_kernel",
@@ -2360,6 +2476,9 @@ SOURCES = {"histogram256": ("aejpeg_tpu_torch/csrc/histogram256.cu",
                                "aejpeg_tpu/ops/pallas_kernels.py:362"),
            "u8_to_unit": ("aejpeg_tpu_torch/csrc/u8_to_unit.cu",
                           "aejpeg_tpu/ops/pallas_kernels.py:197"),
+           "f32_to_unit": ("aejpeg_tpu_torch/csrc/u8_to_unit.cu",
+                           "none: the host's rounding, "
+                           "aejpeg_tpu/codec/batch_encode.py:581"),
            "banded_resize": ("aejpeg_tpu_torch/csrc/banded_resize.cu",
                              "aejpeg_tpu/ops/resize.py:168"),
            "dct2d": ("aejpeg_tpu_torch/csrc/banded_resize.cu",
@@ -2413,6 +2532,7 @@ def main() -> int:
     log("[4] card against CPU, 2 images; batch vs single on the card")
     bilateral_card_vs_cpu()
     card_vs_cpu(cfg, big[:2])
+    push_routes(cfg, big)
 
     log(f"[5] times, {BATCH} x {H}x{W}, median of {BATCH_REPS} warm batches "
         f"({card})")
