@@ -1,5 +1,6 @@
-"""Median ms a batch of the program's `encode.convert` span (`_host_batch`,
-the host f32-to-u8 conversion of the images, inside push)."""
+"""Median ms a batch of the program's `encode.convert` span, inside push: on
+the card the staging of the float32 images into pinned memory (by the copy
+pool from 8 MiB a batch), elsewhere `_host_batch`'s f32-to-u8 conversion."""
 
 from benchmark.metrics import _spans
 

@@ -7,13 +7,14 @@ INTER_AREA downsample -> edge map -> quadtree of leaf blocks -> per leaf
 DCT-II, quantize, zigzag; and back: dequantize, DCT-III, paint, crop,
 denormalize, INTER_LINEAR upsample, inverse colour, clip.
 
-Precision.  `prec="reference"` computes the colour conversion and the
-area downsample in float32 in the codec's order (they feed a truncation to
-uint8, whose result the codec defines at float32) and every DCT, quantize
-and the whole decode in float64.  `prec="tf32"` is the control: every
-contraction (colour matrix, resize, DCT, inverse DCT) takes operands
-rounded to TF32 (10 mantissa bits, as the tensor cores read float32) and
-accumulates in float32; quantize divides in float32.
+Precision.  `prec="reference"` computes a matrix space's colour
+conversion and the area downsample in float32 in the codec's order (they
+feed a truncation to uint8, whose result the codec defines at float32) and
+every DCT, quantize and the whole decode in float64; a space with a file
+of its own (spaces/<name>.py) says how it converts.  `prec="tf32"` is the
+control: every contraction (colour matrix, resize, DCT, inverse DCT) takes
+operands rounded to TF32 (10 mantissa bits, as the tensor cores read
+float32) and accumulates in float32; quantize divides in float32.
 
 Images are (N, H, W, 3) uint8 tensors.  A layer's leaves are a dict
 {size: (ys, xs, levels)}, numpy int64 origins and (n, s*s) int64 zigzag
@@ -21,6 +22,7 @@ levels, in any order.
 """
 
 import functools
+import importlib
 import json
 import math
 import os
@@ -50,15 +52,27 @@ Leaves = Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray]]
 
 @functools.lru_cache(maxsize=None)
 def space(name: str) -> dict:
-    """A colour space's matrices and constants, from spaces/<name>.json."""
+    """A colour space: "from_srgb" (x, prec) -> float32 layers and
+    "to_srgb" (ycc, prec) -> sRGB, "mid", "scale" (float32 (3,)) and
+    "ratios".  From spaces/<name>.json, 3x3 matrices (`convert` and
+    `matrix_to_srgb`), or spaces/<name>.py, a module with `from_srgb`,
+    `to_srgb`, MIDPOINTS, SCALES and DOWNSAMPLING (a space that is not
+    linear)."""
+    f32 = lambda v: np.asarray(v, np.float64).astype(np.float32)  # noqa
+    if os.path.exists(os.path.join(SPACES_DIR, f"{name}.py")):
+        mod = importlib.import_module(f"{__package__}.spaces.{name}")
+        return {"from_srgb": mod.from_srgb, "to_srgb": mod.to_srgb,
+                "mid": f32(mod.MIDPOINTS), "scale": f32(mod.SCALES),
+                "ratios": [tuple(r) for r in mod.DOWNSAMPLING]}
     path = os.path.join(SPACES_DIR, f"{name}.json")
     if not os.path.exists(path):
         raise NotImplementedError(f"the reference has no colour space "
-                                  f"{name!r} (add {path})")
+                                  f"{name!r} (add {path}, or a .py)")
     with open(path) as f:
         d = json.load(f)
-    f32 = lambda v: np.asarray(v, np.float64).astype(np.float32)  # noqa
-    return {"from": f32(d["from_srgb"]), "to": f32(d["to_srgb"]),
+    m_from, m_to = f32(d["from_srgb"]), f32(d["to_srgb"])
+    return {"from_srgb": lambda x, prec: convert(x, m_from, prec),
+            "to_srgb": lambda ycc, prec: matrix_to_srgb(ycc, m_to, prec),
             "mid": f32(d["midpoints"]), "scale": f32(d["scales"]),
             "ratios": [tuple(r) for r in d["downsampling"]]}
 
@@ -197,6 +211,14 @@ def convert(x: torch.Tensor, m: np.ndarray, prec: str) -> torch.Tensor:
                         + x[..., 2] * m[j][2] for j in range(3)], -1)
 
 
+def matrix_to_srgb(ycc: torch.Tensor, m: np.ndarray, prec: str
+                   ) -> torch.Tensor:
+    """(..., 3) @ m.T in ycc's dtype (the decode's last contraction)."""
+    dt = ycc.dtype
+    m = _operand(torch.tensor(m, device=ycc.device), prec).to(dt)
+    return _operand(ycc, prec).to(dt) @ m.T
+
+
 def area_down(x: torch.Tensor, dst: Tuple[int, int], prec: str
               ) -> torch.Tensor:
     """INTER_AREA downsample of (N, h, w) float32 planes, rows first.  An
@@ -320,8 +342,7 @@ def levels_of(norm: torch.Tensor, li: int, leaves: dict, cfg: dict,
 
 def layers_of(images: torch.Tensor, cfg: dict, prec: str):
     """(N, H, W, 3) uint8 -> the three (N, lh, lw) float32 layer stacks."""
-    sp = space(cfg["color_space"])
-    x = convert(unit(images), sp["from"], prec)
+    x = space(cfg["color_space"])["from_srgb"](unit(images), prec)
     shapes = layer_shapes(cfg, images.shape[1:3])
     return [area_down(x[..., i].contiguous(), shapes[i], prec)
             for i in range(3)]
@@ -397,6 +418,5 @@ def decode(layers: List[Leaves], cfg: dict, shape: Tuple[int, int],
             layer = _operand(wh @ _operand(layer, prec).to(dt), prec) \
                 .to(dt) @ ww.T
         planes.append(layer)
-    ycc = _operand(torch.stack(planes, -1), prec).to(dt)
-    m = _operand(torch.tensor(sp["to"], device=device), prec).to(dt)
-    return torch.clamp(ycc @ m.T, 0.0, 1.0)
+    return torch.clamp(sp["to_srgb"](torch.stack(planes, -1), prec),
+                       0.0, 1.0)

@@ -84,7 +84,7 @@ def test_spec_lists_the_cells_metrics():
         assert per_layer[name]["workloads"] == ["clic.encode-stream"]
         assert callable(reg.metric_reader(name))
     clic = {m["name"] for m in reg.metrics_of("clic.encode-stream", True)}
-    assert set(NEW) <= clic and len(clic) == 10
+    assert set(NEW) <= clic and len(clic) == 12
     compress = {m["name"] for m in reg.metrics_of("kodak.compress", True)}
     assert compress == {"encode.push_ms.compress",
                         "encode.stage_a_ms.compress",

@@ -132,7 +132,7 @@ def test_broken_timed_path_is_not_correct(cell, fault, tmp_path, capsys):
 def test_sound_run_is_correct(tmp_path, capsys):
     torch.set_num_threads(2)
     reg = small_bench(tmp_path)
-    rc = run_cell(reg, "live.encode-stream", 3, 0.2, False,
+    rc = run_cell(reg, "clic.encode-stream", 3, 0.2, False,
                   time.perf_counter(), device=torch.device("cpu"),
                   look_for_chip=False)
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -130,6 +130,6 @@ def test_new_pieces_are_files_alone(tmp_path, capsys):
 
 def test_no_cuda_no_result(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    rc = run_cell(small_bench(tmp_path), "live.encode-stream", 1, 0.1,
+    rc = run_cell(small_bench(tmp_path), "clic.encode-stream", 1, 0.1,
                   False, time.perf_counter())
     assert rc != 0 and capsys.readouterr().out == ""

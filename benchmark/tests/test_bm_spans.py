@@ -1,4 +1,4 @@
-"""The readers of the program's spans (metrics/_spans.py and the eleven
+"""The readers of the program's spans (metrics/_spans.py and the ten
 metrics on it): a number from the records of a traced CPU run, the values
 a hand-built record set implies, and None from a program without spans."""
 
@@ -14,10 +14,10 @@ import aejpeg_tpu_torch as at
 from aejpeg_tpu_torch.utils import log as L
 from benchmark.harness.registry import Registry
 
-NEW = {"encode.convert_ms", "encode.convert_cpu_pct", "encode.canny_ms",
-       "encode.stage_a_wait_ms", "encode.hysteresis_checks",
-       "decode.native_ms", "preview.edges_ms", "preview.plan_ms",
-       "preview.blocks_ms", "preview.deflate_ms", "preview.syncs"}
+NEW = {"encode.convert_ms", "encode.canny_ms", "encode.stage_a_wait_ms",
+       "encode.hysteresis_checks", "decode.native_ms", "preview.edges_ms",
+       "preview.plan_ms", "preview.blocks_ms", "preview.deflate_ms",
+       "preview.syncs"}
 
 
 def _read(name, events):
@@ -48,11 +48,18 @@ def traced_events():
 
 
 def test_the_spec_lists_the_new_readers():
-    spec = {m["name"]: m for m in Registry().spec()["per_layer"]}
-    assert NEW <= set(spec)
+    """Each reader is in the spec under its own name or a cell's
+    (`<reader>.<cell>`)."""
+    spec = Registry().spec()["per_layer"]
     for name in NEW:
-        assert spec[name]["source"] in ("program_span", "program_counter")
-        assert callable(Registry().metric_reader(name))
+        entries = [m for m in spec if m["name"] == name
+                   or m["name"].startswith(name + ".")]
+        assert entries, name
+        for m in entries:
+            assert m["source"] in ("program_span", "program_counter")
+            read = Registry().metric_reader(m["name"])
+            assert read.__code__.co_filename == \
+                Registry().metric_reader(name).__code__.co_filename
 
 
 @pytest.mark.parametrize("name", sorted(NEW))
@@ -96,20 +103,22 @@ def test_readers_by_hand():
                      sync=1),
                _span(b + 6, "sync.levels", b + 3, b + 80, b + 84, sync=1)]
     ev += [_span(900, "codec.compress", None, 0, 50, root=900),
-           _span(901, "codec.edges", 900, 0, 10, root=900),
-           _span(902, "sync.pull", 901, 8, 10, root=900, sync=1),
-           _span(903, "codec.edges", 900, 10, 13, root=900),
-           _span(904, "codec.deflate", 900, 40, 50, root=900),
+           _span(901, "encode.stage_a", 900, 0, 14, root=900),
+           _span(902, "stage_a.canny", 901, 0, 10, root=900),
+           _span(903, "sync.hysteresis", 902, 8, 10, root=900, sync=1),
+           _span(904, "stage_a.canny", 901, 10, 13, root=900),
+           _span(909, "encode.device", 900, 14, 16, root=900),
+           _span(910, "encode.assemble", 900, 40, 50, root=900),
            _span(905, "codec.decompress", None, 51, 60, root=905),
            _span(906, "sync.upload", 905, 52, 53, root=905, sync=1),
            _span(907, "codec.decompress", None, 61, 70, root=907),
            _span(908, "sync.upload", 907, 62, 63, root=907, sync=1)]
     assert _read("encode.convert_ms", ev) == pytest.approx(15.0)
-    assert _read("encode.convert_cpu_pct", ev) == pytest.approx(75.0)
     assert _read("encode.canny_ms", ev) == pytest.approx(50.0)
     assert _read("encode.stage_a_wait_ms", ev) == pytest.approx(6.0)
     assert _read("encode.hysteresis_checks", ev) == pytest.approx(2.5)
     assert _read("preview.edges_ms", ev) == pytest.approx(13.0)
+    assert _read("preview.blocks_ms", ev) == pytest.approx(2.0)
     assert _read("preview.deflate_ms", ev) == pytest.approx(10.0)
     assert _read("preview.syncs", ev) == 2
     assert _read("preview.plan_ms", ev) is None
